@@ -1,0 +1,28 @@
+"""The PyTorch port imports torch and never jax, nor the JAX package.
+
+Checked in a fresh interpreter, since this test process has jax loaded.
+"""
+
+import os
+import subprocess
+import sys
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+import tha4_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(tha4_tpu_torch.__path__, "tha4_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tha4_tpu.")) or m in ("tha4_tpu", "triton"))
+print(len(names), "modules;", "imported:", bad)
+assert not bad, bad
+"""
+
+
+def test_port_never_imports_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    count = int(proc.stdout.split()[0])
+    assert count >= 20, proc.stdout
