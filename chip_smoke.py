@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame and face-student training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,21 @@ Phases, one or more lines each:
    bf16 and in f32.  All six outputs must be finite; K1 must launch 4 times
    and K2 once per frame; the f32 frame must match the same model's plain
    run on the CPU; the bf16 frame must be within 28 dB PSNR of the f32 one;
-   the headless CLI must write a PNG; ms/frame at batch 1 is printed.
+   the headless CLI must write a PNG; ms/frame at batch 1 is printed;
+6. K4 (``sine_chain_t_bwd``) against its plain version at the face
+   student's training shape (N = 8, 128^2) and at body level 1 (N = 1,
+   256^2, with prev), f32 and bf16: every gradient within its bar, two
+   calls bit-identical, median times;
+7. the training path: a seeded full-width random mode_12 teacher and the
+   synthetic character, mask and ``DistillerConfig`` (written to a
+   temporary directory) train the face student through
+   ``DistillationJobs(...).make_face_trainer().train()`` in bf16 at batch
+   8 for 32 steps, across two checkpoint boundaries.  Losses must be
+   finite; each step must launch K1, K4 once and K2 twice; the checkpoints
+   must load; resuming from the first must reproduce the run; the f32
+   student gradients on the card (K1 + K4) must match the plain backward
+   on the CPU for the same loss cotangent; ms/step at batch 8 in bf16 and
+   f32 is printed, split into teacher, student and Adam.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -28,9 +42,12 @@ CUDA, and a directory without the rest of the repository.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +75,23 @@ K2_BF16_ATOL = 2.0**-7  # one bf16 step at |x| < 2 (images lie in [-1, 1])
 FRAME_F32_ATOL = {"blended": 2e-3, "alpha": 2e-4, "color_change": 2e-4, "warped": 2e-3, "grid_change": 2e-4, "face": 2e-4}
 FRAME_F32_MIN_PSNR = 60.0
 BF16_MIN_PSNR = 28.0  # tests/test_mode_14_parity.py:166
+# K4, each gradient over its largest magnitude.  f32: the omega = 30 bar of
+# tests/test_pallas_siren.py:58-93.  bf16: four bf16 steps, since a sum
+# order that flips one stored bf16 activation or g_a by a step (2^-8
+# relative) moves the gradient entries it feeds by about that much.
+K4_F32_ATOL = 1e-4
+K4_BF16_ATOL = 4 * 2.0**-8
+# The f32 training step on the card (K1 + K4) against the plain backward
+# on the CPU, same cotangent: tests/test_pallas_siren.py:95-121, the bar
+# for real level shapes at omega = 30.
+STEP_F32_ATOL = 1e-3
+# Resume from checkpoint 1 against the uninterrupted run.  Bit-equal is
+# expected (K1, K2 and K4 are deterministic, so are cuDNN's forward convs);
+# the bar leaves room for a teacher conv whose sum order varied, which
+# would move a label by a bf16 step and an Adam step by a fraction of lr.
+RESUME_ATOL = 1e-6
+TRAIN_STEPS = 32
+TRAIN_BATCH = 8
 OUTPUT_NAMES = ["blended", "alpha", "color_change", "warped", "grid_change", "face"]
 
 
@@ -313,6 +347,196 @@ def phase_main_path(torch, workdir: str) -> dict:
     return {"launches": launches, "ms": ms}
 
 
+def phase_k4(torch, face, body) -> dict:
+    from tha4_tpu_torch.models.siren import pos_t
+    from tha4_tpu_torch.ops import cuda_siren
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    results = {"f32_err": 0.0, "f32_abs_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}}
+    level1 = body.cfg.levels[1]
+    for dtype, tag, bar in [(torch.float32, "f32", K4_F32_ATOL), (torch.bfloat16, "bf16", K4_BF16_ATOL)]:
+        cases = [
+            ("face", face.pack(dtype, "cuda"), TRAIN_BATCH, face.cfg.image_size, 0),
+            ("L1", body.pack(dtype, "cuda")[1], 1, level1.image_size, level1.intermediate_channels),
+        ]
+        for name, chain, n, size, cp in cases:
+            hw = size * size
+            pose_dim = int(chain.specs[0, 0]) - cp - 2
+            prev = (torch.rand((n, cp, hw), generator=gen) * 2.0 - 1.0).to("cuda", dtype) if cp else None
+            pos = pos_t(size, dtype, "cuda")
+            pose = torch.rand((n, pose_dim), generator=gen).cuda()
+            g = torch.randn((n, chain.out_channels, hw), generator=gen).to("cuda", dtype)
+            args = (prev, pos, pose, chain, g)
+            first = cuda_siren.sine_chain_t_bwd(*args)
+            again = cuda_siren.sine_chain_t_bwd(*args)
+            ref = cuda_siren.chain_t_bwd_plain(*args)
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, a, b, r in zip(["dprev", "dpose", "dW", "db"], first, again, ref):
+                if r is None:
+                    continue
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K4 {name} {tag}: two calls give different {gname}")
+                if a.shape != r.shape or a.dtype != r.dtype:
+                    raise AssertionError(f"K4 {name} {tag} {gname}: {tuple(a.shape)} {a.dtype} vs {tuple(r.shape)} {r.dtype}")
+                abs_err = float((a.float() - r.float()).abs().max())
+                errs[gname] = abs_err / max(float(r.float().abs().max()), 1e-3)
+                if dtype == torch.float32:
+                    results["f32_abs_err"] = max(results["f32_abs_err"], abs_err)
+            k_ms = _time_ms(lambda: cuda_siren.sine_chain_t_bwd(*args), iters=10)
+            p_ms = _time_ms(lambda: cuda_siren.chain_t_bwd_plain(*args), iters=10)
+            shape = " -> ".join(str(int(c)) for c in [chain.specs[0, 0]] + list(chain.specs[:, 1]))
+            print(f"K4 {name:4s} {tag:4s} N={n} {size}^2 {shape}: scaled err "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (bar {bar:.1e}); two calls bit-identical; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            worst = max(errs.values())
+            if not worst <= bar:
+                raise AssertionError(f"K4 {name} {tag}: scaled error {worst} over the bar {bar}")
+            results[f"{tag}_err"] = max(results[f"{tag}_err"], worst)
+            if name == "face":
+                results["ms"][tag], results["plain_ms"][tag] = k_ms, p_ms
+    return results
+
+
+def _timed_steps(torch, recipes, student, teacher, image, mask, dtype, pipelined: bool, iters: int = 20, warmup: int = 3) -> dict:
+    """One training step at batch 8: host-clock ms per step over ``iters``
+    steps, and the medians of its CUDA-event split into teacher labels,
+    student forward + backward, and Adam.  The poses are on the card before
+    the loop.  ``pipelined``: nothing waits between steps, so the host
+    enqueues a step while the card runs the one before; otherwise every step
+    ends in a synchronize, as the trainer's copy of each step's poses from
+    pageable host memory makes it wait."""
+    from tha4_tpu_torch.distiller.pose_dataset import sample_poses
+
+    student = copy.deepcopy(student)
+    optimizer = recipes.make_adam(student)
+    batches = [sample_poses(torch.Generator().manual_seed(SEED + 100 + i), TRAIN_BATCH).cuda() for i in range(warmup + iters)]
+    events = []
+    for i, poses in enumerate(batches):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        target = recipes.face_teacher_targets(teacher, image, poses, dtype)
+        ev[1].record()
+        optimizer.zero_grad(set_to_none=True)
+        total, _ = recipes.face_loss(student, target, mask, poses, dtype)
+        total.backward()
+        ev[2].record()
+        for group in optimizer.param_groups:
+            group["lr"] = 1e-4
+        optimizer.step()
+        ev[3].record()
+        if not pipelined:
+            ev[3].synchronize()
+        events.append(ev)
+    torch.cuda.synchronize()
+    out = {"step_ms": (time.perf_counter() - t0) * 1000.0 / iters}
+    for j, key in enumerate(["teacher_ms", "student_ms", "adam_ms"]):
+        out[key] = statistics.median(ev[j].elapsed_time(ev[j + 1]) for ev in events[warmup:])
+    return out
+
+
+def phase_training(torch, workdir: str) -> dict:
+    from tha4_tpu_torch.charmodel.synthetic import write_distiller_inputs
+    from tha4_tpu_torch.distiller import recipes
+    from tha4_tpu_torch.distiller.config import DistillerConfig
+    from tha4_tpu_torch.distiller.pipeline import DistillationJobs
+    from tha4_tpu_torch.distiller.pose_dataset import sample_poses
+    from tha4_tpu_torch.models import siren
+    from tha4_tpu_torch.ops import cuda_siren, cuda_warp
+    from tha4_tpu_torch.poser.modes import mode_12
+    from tha4_tpu_torch.training import checkpoint as ckpt
+
+    config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, "distill"), seed=SEED, batch_size=TRAIN_BATCH))
+    teacher_params = mode_12.init(torch.Generator().manual_seed(SEED + 7))
+    total = TRAIN_STEPS * TRAIN_BATCH
+
+    def jobs(prefix: str) -> DistillationJobs:
+        os.makedirs(prefix, exist_ok=True)
+        return DistillationJobs(
+            dataclasses.replace(config, prefix=prefix), teacher_params_12=teacher_params, compute_dtype=torch.bfloat16,
+            device="cuda", face_total_examples=total, examples_per_checkpoint=total // 2, examples_per_snapshot=total // 4,
+        )
+
+    run = jobs(os.path.join(workdir, "run"))
+    trainer = run.make_face_trainer()
+    trainer.cfg.log_every_seconds = 0.0  # a log row, and so a loss to check, every step
+    counters = [cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd, cuda_warp.grid_sample_fast]
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    n_params = sum(t.numel() for sd in teacher_params.values() for t in sd.values())
+    print(f"training: face student, {TRAIN_STEPS} steps at B={TRAIN_BATCH} in bf16 through "
+          f"DistillationJobs.make_face_trainer().train(), teacher mode_12 at full width ({n_params / 1e6:.1f} M params, random): "
+          f"{wall:.2f} s; launches {launches}")
+    expected = {"sine_chain_t": TRAIN_STEPS, "sine_chain_t_bwd": TRAIN_STEPS, "grid_sample_fast": 2 * TRAIN_STEPS}
+    if launches != expected or result["examples_seen"] != total:
+        raise AssertionError(f"expected {expected} launches and {total} examples, got {launches}, {result['examples_seen']}")
+
+    prefix = trainer.cfg.prefix
+    with open(os.path.join(prefix, "log", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != TRAIN_STEPS or not all(math.isfinite(r[k]) for r in rows for k in ("full", "eye_mouth", "loss")):
+        raise AssertionError(f"training: {len(rows)} log rows, or a loss that is not finite")
+    print(f"training: loss {rows[0]['loss']:.5f} at step 1, {rows[-1]['loss']:.5f} at step {TRAIN_STEPS}, all finite")
+    for d, seen in [(ckpt.checkpoint_dir(prefix, i), i * total // 2) for i in range(3)] + [(ckpt.snapshot_dir(prefix), total)]:
+        if not ckpt.can_load(d, ["module"]) or ckpt.read_examples_seen(d) != seen:
+            raise AssertionError(f"training: {d} is not a loadable state at {seen} examples")
+
+    resumed_trainer = jobs(os.path.join(workdir, "resumed")).make_face_trainer()
+    shutil.copytree(ckpt.checkpoint_dir(prefix, 1), ckpt.checkpoint_dir(resumed_trainer.cfg.prefix, 1))
+    resumed = resumed_trainer.train()
+    diffs = [float((a - b).abs().max()) for a, b in zip(result["module"].state_dict().values(), resumed["module"].state_dict().values())]
+    print(f"training: resumed from checkpoint 1 ({total // 2} examples) to {resumed['examples_seen']}: "
+          f"params max abs diff {max(diffs):.3e} (bar {RESUME_ATOL:.0e})" + (" (bit-identical)" if max(diffs) == 0.0 else ""))
+    if resumed["examples_seen"] != total or not max(diffs) <= RESUME_ATOL:
+        raise AssertionError("training: resume does not reproduce the uninterrupted run")
+
+    # f32 step: K1 + K4 on the card against the plain backward on the CPU,
+    # with the same params, poses, labels and loss cotangent.
+    student = result["module"]
+    teacher32 = mode_12.FaceTeacher.from_params(teacher_params).freeze(torch.float32, "cuda")
+    image = run.character_image()
+    mask = torch.from_numpy(recipes.load_face_mask_crop(run.config.face_mask_image_file_name)).cuda()
+    poses = sample_poses(torch.Generator().manual_seed(SEED + 9), TRAIN_BATCH).cuda()
+    target = recipes.face_teacher_targets(teacher32, image, poses, torch.float32)
+    card = copy.deepcopy(student)
+    pose = poses[:, : card.cfg.pose_size].float()
+    pred = siren.siren_face_morpher_train_apply(card, pose, torch.float32)
+    pred.retain_grad()
+    loss, _ = recipes.face_loss_terms(pred, target, mask)
+    loss.backward()
+    s = card.cfg.image_size
+    cot = pred.grad.permute(0, 3, 1, 2).reshape(TRAIN_BATCH, card.cfg.image_channels, s * s).contiguous().cpu()
+    chain = copy.deepcopy(student).cpu().pack(torch.float32, "cpu")
+    _, _, dw, db = cuda_siren.chain_t_bwd_plain(None, siren.pos_t(s, torch.float32, "cpu"), pose.cpu(), chain, cot)
+    convs = [l.linear for l in card.siren.sine_layers] + [card.siren.last_linear]
+    step_err = 0.0
+    for conv, (ci, co, wo, bo) in zip(convs, chain.specs):
+        for grad, ref in [(conv.weight.grad.reshape(-1), dw[wo : wo + co * ci]), (conv.bias.grad, db[bo : bo + co])]:
+            step_err = max(step_err, float((grad.cpu() - ref).abs().max()) / max(float(ref.abs().max()), 1e-12))
+    print(f"training: f32 student gradients, card (K1 + K4) vs CPU plain backward, same cotangent: "
+          f"scaled max err {step_err:.3e} (bar {STEP_F32_ATOL:.0e})")
+    if not step_err <= STEP_F32_ATOL:
+        raise AssertionError(f"training: f32 card gradients {step_err} over the bar {STEP_F32_ATOL}")
+
+    steps = {}
+    teacher16 = mode_12.FaceTeacher.from_params(teacher_params).freeze(torch.bfloat16, "cuda")
+    for tag, dtype, teacher in [("bf16", torch.bfloat16, teacher16), ("f32", torch.float32, teacher32)]:
+        for mode, pipelined in [("synchronized", False), ("pipelined", True)]:
+            t = steps[f"{tag}_{mode}"] = _timed_steps(torch, recipes, student, teacher, image, mask, dtype, pipelined)
+            print(f"training step {tag} at B={TRAIN_BATCH}, {mode}: {t['step_ms']:.3f} ms/step host clock over 20 steps "
+                  f"({TRAIN_BATCH * 1000.0 / t['step_ms']:.1f} examples/s); CUDA-event medians: teacher {t['teacher_ms']:.3f} ms, "
+                  f"student fwd+bwd {t['student_ms']:.3f} ms, Adam {t['adam_ms']:.3f} ms")
+    return {"launches": launches, "steps": steps, "step_err": step_err, "resume_diff": max(diffs), "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -334,6 +558,10 @@ def main() -> int:
         k2 = phase_k2(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         main_path = phase_main_path(torch, workdir)
+    with torch.inference_mode():
+        k4 = phase_k4(torch, face, body)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        training = phase_training(torch, workdir)
 
     kernels = {
         "kernels": [
@@ -344,6 +572,7 @@ def main() -> int:
                 "max_abs_err": k1["f32_err"], "ms": k1["ms"]["bf16"], "plain_ms": k1["plain_ms"]["bf16"],
                 "max_abs_err_bf16": k1["bf16_err"], "ms_f32": k1["ms"]["f32"], "plain_ms_f32": k1["plain_ms"]["f32"],
                 "timed": "sum of the four calls of one frame (face, L0, L1, L2), bf16; *_f32 in f32",
+                "launches_training": training["launches"]["sine_chain_t"],
             },
             {
                 "name": "grid_sample_fast", "route": "cuda", "source": "tha4_tpu_torch/csrc/warp.cu",
@@ -352,9 +581,19 @@ def main() -> int:
                 "max_abs_err": k2["f32_err"], "ms": k2["ms"]["bf16"], "plain_ms": k2["plain_ms"]["bf16"],
                 "max_abs_err_bf16": k2["bf16_err"], "ms_f32": k2["ms"]["f32"], "plain_ms_f32": k2["plain_ms"]["f32"],
                 "timed": "one 512^2x4 warp, smooth grid, bf16 image; *_f32 with an f32 image",
+                "launches_training": training["launches"]["grid_sample_fast"],
+            },
+            {
+                "name": "sine_chain_t_bwd", "route": "cuda", "source": "tha4_tpu_torch/csrc/sine_chain_bwd.cu",
+                "replaces": "tha4_tpu/ops/pallas_siren.py:433",
+                "launches": training["launches"]["sine_chain_t_bwd"],
+                "max_abs_err": k4["f32_abs_err"], "ms": k4["ms"]["bf16"], "plain_ms": k4["plain_ms"]["bf16"],
+                "max_scaled_err": k4["f32_err"], "max_scaled_err_bf16": k4["bf16_err"],
+                "ms_f32": k4["ms"]["f32"], "plain_ms_f32": k4["plain_ms"]["f32"],
+                "timed": "one face-student backward, N=8, 128^2, 41->128x8->4, bf16; *_f32 in f32; launches from the training run",
             },
         ],
-        "frame_ms": main_path["ms"], "build_s": build_s, "card": card,
+        "frame_ms": main_path["ms"], "train_step_ms": training["steps"], "build_s": build_s, "card": card,
     }
     print(json.dumps(kernels))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tha4_tpu_torch.models import siren
 from tha4_tpu_torch.ops import cuda_siren, cuda_warp
 from tha4_tpu_torch.ops.warp import identity_grid
 
@@ -70,6 +71,67 @@ def test_warp_kernel_matches_plain(card, dtype, atol):
     assert float((out.float() - ref.float()).abs().max()) <= atol
 
 
+def _bwd_case(case, dtype, device):
+    """K4's shapes: the face student's training batch (N = 8, 128^2,
+    41->128x8->4), the body's level 1 (N = 1, 256^2, prev 180 channels,
+    227->180->180->90), and a small chain with a ragged last tile."""
+    rng = np.random.default_rng(len(case))
+    if case == "odd":
+        chain, n, size, cp = _chain(rng, [15, 40, 16, 5], 1, dtype, device), 3, None, 6
+        hw = 77
+        pos = torch.from_numpy(rng.uniform(-1, 1, (2, hw)).astype(np.float32)).to(device, dtype)
+    else:
+        gen = torch.Generator().manual_seed(4)
+        face, body = siren.SirenFaceMorpher(generator=gen), siren.SirenMorpher(generator=gen)
+        chain, n, size, cp = (face.pack(dtype, device), 8, 128, 0) if case == "face" else (body.pack(dtype, device)[1], 1, 256, 180)
+        hw = size * size
+        pos = siren.pos_t(size, dtype, device)
+    pose_dim = int(chain.specs[0, 0]) - cp - 2
+    prev = torch.from_numpy(rng.uniform(-1, 1, (n, cp, hw)).astype(np.float32)).to(device, dtype) if cp else None
+    pose = torch.from_numpy(rng.uniform(0, 1, (n, pose_dim)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal((n, chain.out_channels, hw)).astype(np.float32)).to(device, dtype)
+    return prev, pos, pose, chain, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["face", "L1", "odd"])
+def test_sine_chain_bwd_kernel_matches_plain(card, dtype, case):
+    prev, pos, pose, chain, g = _bwd_case(case, dtype, card)
+    before = cuda_siren.sine_chain_t_bwd.launches
+    first = cuda_siren.sine_chain_t_bwd(prev, pos, pose, chain, g)
+    again = cuda_siren.sine_chain_t_bwd(prev, pos, pose, chain, g)
+    torch.cuda.synchronize()
+    assert cuda_siren.sine_chain_t_bwd.launches == before + 2
+    ref = cuda_siren.chain_t_bwd_plain(prev, pos, pose, chain, g)
+    for name, a, b, r in zip(["dprev", "dpose", "dw", "db"], first, again, ref):
+        if r is None:
+            assert a is None and b is None
+            continue
+        assert torch.equal(a, b), f"{name}: two calls differ"  # no float atomics
+        assert a.dtype == r.dtype and a.shape == r.shape
+        scale = max(float(r.float().abs().max()), 1e-3)
+        err = float((a.float() - r.float()).abs().max()) / scale
+        # f32: tests/test_pallas_siren.py:58-93 at omega = 30; bf16: four bf16
+        # steps, since a summation order that flips one stored bf16
+        # activation or g_a by a step moves the entries it feeds by that much.
+        assert err <= (1e-4 if dtype == torch.float32 else 2.0**-6), (name, err)
+
+
+def test_autograd_function_launches_k1_forward_and_k4_backward(card):
+    prev, pos, pose, chain, g = _bwd_case("odd", torch.bfloat16, card)
+    mats = [tuple(t.float().clone().requires_grad_() for t in chain.layer(i)) for i in range(chain.num_layers)]
+    k1, k4 = cuda_siren.sine_chain_t.launches, cuda_siren.sine_chain_t_bwd.launches
+    out = cuda_siren.sine_chain_t_train(prev, pos, pose, mats[:-1], mats[-1], torch.bfloat16)
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (cuda_siren.sine_chain_t.launches - k1, cuda_siren.sine_chain_t_bwd.launches - k4) == (1, 1)
+    _, _, dw, db = cuda_siren.chain_t_bwd_plain(prev, pos, pose, chain, g)
+    for (w, b), (ci, co, wo, bo) in zip(mats, chain.specs):
+        assert w.grad.dtype == torch.float32
+        for grad, ref in [(w.grad.reshape(-1), dw[wo : wo + co * ci]), (b.grad, db[bo : bo + co])]:
+            assert float((grad - ref).abs().max()) <= 2.0**-6 * max(float(ref.abs().max()), 1e-3)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     image = torch.zeros((1, 8, 8, 3), device=card)
     with pytest.raises(ValueError, match="N, H, W, 4"):
@@ -78,3 +140,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     pos = torch.zeros((2, 16), device=card)
     with pytest.raises(ValueError, match="on cpu"):
         cuda_siren.sine_chain_t(None, pos, torch.zeros((1, 3), device=card), chain)
+    wide = _chain(np.random.default_rng(0), [47, 360, 360, 180], 0, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_siren.sine_chain_t_bwd(
+            None, torch.zeros((2, 64), device=card, dtype=torch.bfloat16), torch.zeros((1, 45), device=card), wide,
+            torch.zeros((1, 180, 64), device=card, dtype=torch.bfloat16),
+        )

@@ -6,10 +6,12 @@ find, and keeps its public layouts: NHWC images, (N, 45) poses and
 ``jax``; it carries its own copies of the small numpy-only pieces (pose
 schema, Poser interface, character-model yaml I/O, image codec).
 
-The two hot operations of the real-time student frame run as hand-written
-CUDA kernels for sm_90a (``csrc/``), built with nvcc at first use:
+The hot operations of the real-time student frame and of face-student
+distillation run as hand-written CUDA kernels for sm_90a (``csrc/``), built
+with nvcc at first use:
 
   * ``ops.cuda_siren.sine_chain_t`` — a whole SIREN level per call;
+  * ``ops.cuda_siren.sine_chain_t_bwd`` — its backward, for training;
   * ``ops.cuda_warp.grid_sample_fast`` — the bilinear border warp.
 
 Each has a plain PyTorch version beside it, which runs only for tensors on

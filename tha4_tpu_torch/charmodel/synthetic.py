@@ -1,5 +1,7 @@
-"""A seeded random-init character model, for runs without trained weights.
+"""Seeded synthetic inputs, for runs without trained weights or shipped art.
 
+``write_distiller_inputs`` writes a synthetic character, an eye-mouth mask
+and a ``DistillerConfig`` yaml, from which the face student trains.
 ``write_random_character_model`` writes the three parts of a character model
 (the two student ``.pt`` state dicts, from the port's own init, and a
 synthetic 512^2 RGBA character) plus the yaml that ties them together, so
@@ -51,6 +53,47 @@ def synthetic_character_image(size: int = 512, seed: int = 0) -> np.ndarray:
         rgb += blob[..., None] * (rng.uniform(0.0, 1.0, 3) - rgb) * 0.8
     out = np.concatenate([np.clip(rgb, 0.0, 1.0), alpha[..., None]], axis=-1)
     return np.uint8(np.rint(out * 255.0))
+
+
+def synthetic_face_mask(size: int = 512, seed: int = 0) -> np.ndarray:
+    """(size, size, 3) uint8 RGB eye-mouth mask, 0 or 255 in every channel:
+    two eyes and a mouth, seeded ellipses in the red channel, inside the
+    face square rows 80:208, cols 192:320 (at 512^2) that the distiller
+    crops (``distiller/recipes.load_face_mask_crop``)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) * (512.0 / size)
+    red = np.zeros((size, size), dtype=bool)
+    for cy, cx, ry, rx in [(132.0, 228.0, 10.0, 16.0), (132.0, 284.0, 10.0, 16.0), (182.0, 256.0, 8.0, 22.0)]:
+        cy, cx = cy + rng.uniform(-4.0, 4.0), cx + rng.uniform(-4.0, 4.0)
+        red |= ((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2 <= 1.0
+    mask = np.zeros((size, size, 3), dtype=np.uint8)
+    mask[..., 0] = np.where(red, 255, 0)
+    return mask
+
+
+def write_distiller_inputs(directory: str, seed: int = 0, batch_size: int = 8) -> str:
+    """Write ``character.png``, ``face_mask.png`` and ``config.yaml`` (a
+    ``DistillerConfig`` with its prefix under ``directory/job`` and sample
+    outputs off) into ``directory``; returns the yaml's path."""
+    import PIL.Image
+
+    from tha4_tpu_torch.distiller.config import DistillerConfig
+
+    os.makedirs(os.path.join(directory, "job"), exist_ok=True)
+    character, mask = os.path.join(directory, "character.png"), os.path.join(directory, "face_mask.png")
+    PIL.Image.fromarray(synthetic_character_image(512, seed), mode="RGBA").save(character)
+    PIL.Image.fromarray(synthetic_face_mask(512, seed), mode="RGB").save(mask)
+    config = DistillerConfig(
+        prefix=os.path.join(directory, "job"),
+        character_image_file_name=character,
+        face_mask_image_file_name=mask,
+        face_morpher_num_training_examples_per_sample_output=None,
+        body_morpher_num_training_examples_per_sample_output=None,
+        face_morpher_batch_size=batch_size,
+    )
+    path = os.path.join(directory, "config.yaml")
+    config.save(path)
+    return path
 
 
 def write_random_character_model(

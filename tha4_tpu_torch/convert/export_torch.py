@@ -1,11 +1,15 @@
-"""Student weights as reference ``.pt`` state dicts
+"""Weights as reference ``.pt`` state dicts
 (counterpart of ``tha4_tpu/convert/export_torch.py``).
 
-``siren_face_morpher_state_dict`` and ``siren_morpher_state_dict`` are also
-the weight bridge from the JAX package: they take its student params as
-numpy arrays (``{"w": (Cin, Cout), "b": (Cout,)}`` per layer) and return
-state dicts that the port's modules load, with w.T -> (O, I, 1, 1) and b as
-it is.
+These functions are also the weight bridge from the JAX package: they take
+its params as numpy arrays and return state dicts that the port's modules
+load.  Students: ``{"w": (Cin, Cout), "b": (Cout,)}`` per layer, with
+w.T -> (O, I, 1, 1).  The mode_12 teacher (``face_teacher_state_dicts``):
+the inverse of ``tha4_tpu/convert/torch_weights.py:convert_eyebrow_decomposer``,
+``convert_eyebrow_morphing_combiner`` and ``convert_face_morpher_08``: HWIO
+conv weights -> OIHW; a transposed conv's forward-conv HWIO (over the
+dilated input) -> torch's flipped (I, O, kh, kw); norm scale/bias ->
+weight/bias.
 """
 
 from __future__ import annotations
@@ -44,6 +48,72 @@ def siren_morpher_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     sd["last_linear.weight"] = _conv1x1(params["last_linear"]["w"])
     sd["last_linear.bias"] = _vec(params["last_linear"]["b"])
     return sd
+
+
+def _conv(sd: Dict, prefix: str, p: Dict) -> None:
+    sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(p["w"], np.float32), (3, 2, 0, 1))))
+    if "b" in p:
+        sd[prefix + ".bias"] = _vec(p["b"])
+
+
+def _conv_transpose(sd: Dict, prefix: str, p: Dict) -> None:
+    w = np.transpose(np.asarray(p["w"], np.float32), (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(w))
+
+
+def _norm(sd: Dict, prefix: str, p: Dict) -> None:
+    sd[prefix + ".weight"] = _vec(p["scale"])
+    sd[prefix + ".bias"] = _vec(p["bias"])
+
+
+def _encoder_decoder(sd: Dict, prefix: str, p: Dict) -> None:
+    for i, block in enumerate(p["downsample_blocks"]):
+        _conv(sd, f"{prefix}downsample_blocks.{i}.0", block["conv"])
+        _norm(sd, f"{prefix}downsample_blocks.{i}.1", block["norm"])
+    for i, block in enumerate(p["bottleneck_blocks"]):
+        if i == 0:
+            _conv(sd, f"{prefix}bottleneck_blocks.0.0", block["conv"])
+            _norm(sd, f"{prefix}bottleneck_blocks.0.1", block["norm"])
+        else:
+            path = f"{prefix}bottleneck_blocks.{i}.resnet_path"
+            _conv(sd, f"{path}.0", block["conv0"])
+            _norm(sd, f"{path}.1", block["norm0"])
+            _conv(sd, f"{path}.3", block["conv1"])
+            _norm(sd, f"{path}.4", block["norm1"])
+    for i, block in enumerate(p["upsample_blocks"]):
+        _conv_transpose(sd, f"{prefix}upsample_blocks.{i}.0", block["conv"])
+        _norm(sd, f"{prefix}upsample_blocks.{i}.1", block["norm"])
+
+
+def _teacher_net(p: Dict, prefix: str, heads: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """heads: name -> key prefix under the module (``name.0`` for a
+    Sequential(conv, act) head, ``name`` for a bare conv)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder_decoder(sd, prefix, p["body"])
+    for name, key in heads.items():
+        _conv(sd, key, p[name]["conv"])
+    return sd
+
+
+def face_teacher_state_dicts(params: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's mode_12 params (numpy arrays) -> the three state
+    dicts of ``poser.modes.mode_12``, keyed by network name."""
+    decomposer_heads = ["background_layer_alpha", "background_layer_color_change", "eyebrow_layer_alpha", "eyebrow_layer_color_change"]
+    combiner_heads = ["morphed_eyebrow_layer_alpha", "morphed_eyebrow_layer_color_change", "combine_alpha"]
+    face_heads = ["iris_mouth_color_change", "iris_mouth_alpha", "eye_color_change", "eye_alpha"]
+    return {
+        "eyebrow_decomposer": _teacher_net(
+            params["eyebrow_decomposer"], "body.", {h: f"{h}.0" for h in decomposer_heads}
+        ),
+        "eyebrow_morphing_combiner": _teacher_net(
+            params["eyebrow_morphing_combiner"], "body.",
+            {"morphed_eyebrow_layer_grid_change": "morphed_eyebrow_layer_grid_change", **{h: f"{h}.0" for h in combiner_heads}},
+        ),
+        "face_morpher": _teacher_net(
+            params["face_morpher"], "",
+            {"iris_mouth_grid_change": "iris_mouth_grid_change", **{h: f"{h}.0" for h in face_heads}},
+        ),
+    }
 
 
 def save_module_pt(module: nn.Module, file_name: str) -> None:

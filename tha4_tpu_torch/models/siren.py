@@ -1,4 +1,4 @@
-"""SIREN student networks, inference path (counterpart of ``tha4_tpu/models/siren.py``).
+"""SIREN student networks (counterpart of ``tha4_tpu/models/siren.py``).
 
 Two students:
   * ``SirenFaceMorpher`` — pose -> 128x128 RGBA face crop;
@@ -12,6 +12,8 @@ layout (``siren.sine_layers.{i}.linear.weight`` (O, I, 1, 1) for the face,
 shipped or JAX-exported character model loads with ``load_state_dict``.
 The forward runs through ``pack`` (once per dtype and device) and the
 ``*_apply`` functions, one K1 launch per level and one K2 launch per frame.
+The face student trains through ``siren_face_morpher_train_apply``: K1
+forward and K4 backward over the module's live f32 parameters.
 """
 
 from __future__ import annotations
@@ -187,6 +189,22 @@ def siren_face_morpher_apply(cfg: SirenFaceMorpherConfig, chain: PackedChain, po
     """pose (N, pose_size) -> (N, S, S, C) crop in the compute dtype."""
     n, s = pose.shape[0], cfg.image_size
     out = cuda_siren.sine_chain_t(None, pos_t(s, chain.dtype, pose.device), pose.float().contiguous(), chain, cfg.siren.omega0)
+    out = out.reshape(n, cfg.image_channels, s, s).permute(0, 2, 3, 1)
+    return torch.tanh(out) if cfg.siren.use_tanh else out
+
+
+def siren_face_morpher_train_apply(
+    module: SirenFaceMorpher, pose: torch.Tensor, dtype: torch.dtype
+) -> torch.Tensor:
+    """The training path of ``siren_face_morpher_apply``: differentiable in
+    the module's live f32 parameters (K1 forward, K4 backward).  pose
+    (N, pose_size) f32 -> (N, S, S, C) in ``dtype``."""
+    cfg = module.cfg
+    n, s = pose.shape[0], cfg.image_size
+    mats = [(c.weight[:, :, 0, 0], c.bias) for c in [l.linear for l in module.siren.sine_layers] + [module.siren.last_linear]]
+    out = cuda_siren.sine_chain_t_train(
+        None, pos_t(s, dtype, pose.device), pose.float().contiguous(), mats[:-1], mats[-1], dtype, cfg.siren.omega0
+    )
     out = out.reshape(n, cfg.image_channels, s, s).permute(0, 2, 3, 1)
     return torch.tanh(out) if cfg.siren.use_tanh else out
 

@@ -37,6 +37,10 @@ _SIGNATURES = {
     # num_sine, omega, out, n, hw, is_bf16, stream
     "tha4_sine_chain_forward": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
                                 ctypes.c_float, _P, _I, _I, _I, _P],
+    # prev, has_prev, cp, pos, pose, pose_dim, w, b, specs, num_layers,
+    # num_sine, omega, gout, dprev, scratch, blocks, grads, n, hw, is_bf16, stream
+    "tha4_sine_chain_backward": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
+                                 ctypes.c_float, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     # image, grid, out, n, h, w, ho, wo, is_bf16, stream
     "tha4_grid_sample_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

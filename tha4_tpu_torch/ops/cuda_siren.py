@@ -1,12 +1,16 @@
-"""K1: the fused SIREN level (counterpart of ``tha4_tpu/ops/pallas_siren.py``).
+"""K1 and K4: the fused SIREN level and its backward
+(counterpart of ``tha4_tpu/ops/pallas_siren.py``).
 
 A SIREN level is a chain of 1x1-conv sine layers over a pixel grid,
 channels-first: the level input is h = [prev | pos_x, pos_y | pose] per
 pixel, each sine layer is h <- fast_sin(omega * (W h + b)), and the last
 body level ends in a head linear without a sine.
 
-``sine_chain_t`` launches the CUDA kernel in ``csrc/sine_chain.cu`` for CUDA
-tensors and runs ``chain_t_plain`` for CPU tensors.
+``sine_chain_t`` launches the CUDA kernel in ``csrc/sine_chain.cu`` (K1) for
+CUDA tensors and runs ``chain_t_plain`` for CPU tensors;
+``sine_chain_t_bwd`` launches ``csrc/sine_chain_bwd.cu`` (K4) or runs
+``chain_t_bwd_plain`` the same way.  ``SineChainFunction`` ties the two
+into a ``torch.autograd.Function`` over f32 master weights, for training.
 
 Precision rule (``tha4_tpu/ops/pallas_util.py:kernel_dot_precision``):
   * float32 means full-f32 products: no TF32 anywhere;
@@ -22,6 +26,7 @@ into one buffer in the compute dtype, and the biases into one f32 buffer.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -53,6 +58,13 @@ def fast_sin(x: torch.Tensor) -> torch.Tensor:
     r = x - k * _TWO_PI_HI - k * _TWO_PI_LO
     r2 = r * r
     return r * (_SIN_C1 + r2 * (_SIN_C3 + r2 * (_SIN_C5 + r2 * (_SIN_C7 + r2 * (_SIN_C9 + r2 * _SIN_C11)))))
+
+
+def fast_cos(x: torch.Tensor) -> torch.Tensor:
+    """cos(x) = fast_sin(x + pi/2), as ``pallas_siren._fast_cos``: the
+    backward's stand-in for the polynomial's own derivative (they differ by
+    ~1e-6, the polynomial's fit error)."""
+    return fast_sin(x.float() + math.pi / 2)
 
 
 @dataclass(frozen=True)
@@ -95,18 +107,24 @@ def pack_chain(
 ) -> PackedChain:
     """Pack sine layers (and an optional head) given as (W (Co, Ci), b (Co))."""
     mats = list(layers) + ([head] if head is not None else [])
-    if len(mats) > MAX_LAYERS:
-        raise ValueError(f"at most {MAX_LAYERS} layers per chain, got {len(mats)}")
+    specs = chain_specs([tuple(w.shape) for w, _ in mats])
+    w = torch.cat([w.detach().reshape(-1) for w, _ in mats]).to(device=device, dtype=dtype)
+    b = torch.cat([b.detach().reshape(-1) for _, b in mats]).to(device=device, dtype=torch.float32)
+    return PackedChain(w.contiguous(), b.contiguous(), specs, len(layers))
+
+
+def chain_specs(shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
+    """The (ci, co, w_offset, b_offset) rows of a chain of (Co, Ci) layers
+    packed one after the other."""
+    if len(shapes) > MAX_LAYERS:
+        raise ValueError(f"at most {MAX_LAYERS} layers per chain, got {len(shapes)}")
     specs = []
     w_off = b_off = 0
-    for w, b in mats:
-        co, ci = w.shape
+    for co, ci in shapes:
         specs.append((ci, co, w_off, b_off))
         w_off += co * ci
         b_off += co
-    w = torch.cat([w.detach().reshape(-1) for w, _ in mats]).to(device=device, dtype=dtype)
-    b = torch.cat([b.detach().reshape(-1) for _, b in mats]).to(device=device, dtype=torch.float32)
-    return PackedChain(w.contiguous(), b.contiguous(), np.asarray(specs, dtype=np.int32), len(layers))
+    return np.asarray(specs, dtype=np.int32)
 
 
 def _level_input(prev, pos_t, pose, dtype):
@@ -206,3 +224,158 @@ def _check(prev, pos_t, pose, chain: PackedChain) -> None:
     ci0 = int(chain.specs[0, 0])
     if ci0 != cp + 2 + pose.shape[1]:
         raise ValueError(f"first layer takes {ci0} channels, level input has {cp + 2 + pose.shape[1]}")
+
+
+# ---------------------------------------------------------------------------
+# K4: the backward (counterpart of pallas_siren.fused_sine_chain_t_bwd)
+# ---------------------------------------------------------------------------
+
+_BWD_TILE = 32  # csrc/sine_chain_bwd.cu kTile
+_BWD_SMEM_LIMIT = 232448  # 227 KB, the most one block may use on Hopper
+
+
+def chain_t_bwd_plain(
+    prev: Optional[torch.Tensor],
+    pos_t: torch.Tensor,
+    pose: torch.Tensor,
+    chain: PackedChain,
+    g: torch.Tensor,
+    omega: float = 30.0,
+):
+    """The plain PyTorch version of K4.  g (N, Cout, HW) is the cotangent of
+    ``chain_t_plain``'s output; returns (dprev or None, dpose (N, P) f32,
+    dw, db), dw and db f32 in ``chain.w`` / ``chain.b``'s packed layout.
+
+    The TPU kernel's rules: recompute the forward; per layer
+    g_a = g * (omega * fast_cos(omega * a)) (g for the head), db = sum of
+    g_a in f32, then g_a rounded to the compute dtype for dW = g_a h^T and
+    g <- W^T g_a (exact products of compute-dtype values, f32 sums); dprev in
+    prev's dtype; the position rows' gradient is dropped."""
+    dtype = chain.dtype
+    h = _level_input(prev, pos_t, pose, dtype)
+    inputs, pre = [], []
+    for i in range(chain.num_sine):
+        w, b = chain.layer(i)
+        inputs.append(h)
+        pre.append(torch.matmul(w.float(), h.float()) + b[:, None])
+        h = fast_sin(omega * pre[-1]).to(dtype)
+    if chain.num_layers > chain.num_sine:
+        inputs.append(h)
+    g = g.float()
+    dws, dbs = [], []
+    for i in reversed(range(chain.num_layers)):
+        w, _ = chain.layer(i)
+        ga = g * (omega * fast_cos(omega * pre[i])) if i < chain.num_sine else g
+        dbs.append(ga.sum(dim=(0, 2)))
+        ga = ga.to(dtype).float()
+        dws.append(torch.einsum("nop,nip->oi", ga, inputs[i].float()).reshape(-1))
+        g = torch.matmul(w.float().T, ga)
+    cp = 0 if prev is None else prev.shape[1]
+    dprev = None if prev is None else g[:, :cp].to(prev.dtype)
+    dpose = g[:, cp + 2 :].sum(dim=2)
+    return dprev, dpose, torch.cat(dws[::-1]), torch.cat(dbs[::-1])
+
+
+def bwd_smem_bytes(chain: PackedChain, cin: int) -> int:
+    """Shared memory one K4 block needs: every sine layer's f32
+    pre-activations plus three C_max-row buffers, 33 words a row."""
+    stash = int(chain.specs[: chain.num_sine, 1].sum())
+    cmax = max([cin] + [int(c) for c in chain.specs[:, 1]])
+    return (stash + 3 * cmax) * (_BWD_TILE + 1) * 4
+
+
+def sine_chain_t_bwd(
+    prev: Optional[torch.Tensor],
+    pos_t: torch.Tensor,
+    pose: torch.Tensor,
+    chain: PackedChain,
+    g: torch.Tensor,
+    omega: float = 30.0,
+):
+    """The backward of ``sine_chain_t``: (dprev or None, dpose, dw, db) as
+    ``chain_t_bwd_plain`` returns them.  CPU tensors take the plain version;
+    CUDA tensors launch K4, and anything it does not take raises.  dw, db and
+    dpose are views of one f32 buffer."""
+    if pos_t.device.type == "cpu":
+        return chain_t_bwd_plain(prev, pos_t, pose, chain, g, omega)
+    if pos_t.device.type != "cuda":
+        raise ValueError(f"sine_chain_t_bwd: unsupported device {pos_t.device}")
+    _check(prev, pos_t, pose, chain)
+    n, hw, pose_dim = pose.shape[0], pos_t.shape[1], pose.shape[1]
+    if g.shape != (n, chain.out_channels, hw) or g.dtype != chain.dtype or g.device != pos_t.device:
+        raise ValueError(f"g must be ({n}, {chain.out_channels}, {hw}) {chain.dtype} on {pos_t.device}, "
+                         f"got {tuple(g.shape)} {g.dtype} on {g.device}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    if chain.num_sine < chain.num_layers - 1:
+        raise ValueError("K4 takes sine layers and at most one head")
+    cp = 0 if prev is None else prev.shape[1]
+    smem = bwd_smem_bytes(chain, cp + 2 + pose_dim)
+    if smem > _BWD_SMEM_LIMIT:
+        raise ValueError(f"sine_chain_t_bwd: this chain needs {smem} bytes of shared memory per block, "
+                         f"over the {_BWD_SMEM_LIMIT} a Hopper block may use")
+    w_total, b_total = chain.w.numel(), chain.b.numel()
+    slab = w_total + b_total + n * pose_dim
+    # One persistent block per SM; the grid size fixes the order of every sum.
+    items = n * -(-hw // _BWD_TILE)
+    blocks = min(items, torch.cuda.get_device_properties(pos_t.device).multi_processor_count)
+    scratch = torch.empty((blocks, slab), dtype=torch.float32, device=pos_t.device)
+    grads = torch.empty(slab, dtype=torch.float32, device=pos_t.device)
+    dprev = None if prev is None else torch.empty_like(prev)
+    stream = torch.cuda.current_stream(pos_t.device).cuda_stream
+    status = cuda_build.library().tha4_sine_chain_backward(
+        None if prev is None else prev.data_ptr(), int(prev is not None), cp,
+        pos_t.data_ptr(), pose.data_ptr(), pose_dim,
+        chain.w.data_ptr(), chain.b.data_ptr(), chain.specs.ctypes.data,
+        chain.num_layers, chain.num_sine, float(omega), g.data_ptr(),
+        None if dprev is None else dprev.data_ptr(), scratch.data_ptr(), blocks, grads.data_ptr(),
+        n, hw, int(chain.dtype == torch.bfloat16), stream,
+    )
+    cuda_build.check(status, "sine_chain_t_bwd")
+    sine_chain_t_bwd.launches += 1
+    dpose = grads[w_total + b_total :].view(n, pose_dim)
+    return dprev, dpose, grads[:w_total], grads[w_total : w_total + b_total]
+
+
+sine_chain_t_bwd.launches = 0
+
+
+class SineChainFunction(torch.autograd.Function):
+    """One SIREN level with K1 as its forward and K4 as its backward.
+
+    It takes the f32 master weights (``w32``, ``b32`` in the packed layout of
+    ``specs``) and casts them to the compute dtype inside, so the weight
+    gradients come back f32 whatever the compute dtype, as JAX's do
+    (``pallas_siren.py:500-501``).  No gradient flows to ``pos_t``."""
+
+    @staticmethod
+    def forward(ctx, w32, b32, prev, pos_t, pose, specs, num_sine, omega, dtype):
+        chain = PackedChain(w32.to(dtype).contiguous(), b32.contiguous(), specs, num_sine)
+        ctx.chain, ctx.omega = chain, omega
+        ctx.save_for_backward(prev, pos_t, pose)
+        return sine_chain_t(prev, pos_t, pose, chain, omega)
+
+    @staticmethod
+    def backward(ctx, g):
+        prev, pos_t, pose = ctx.saved_tensors
+        dprev, dpose, dw, db = sine_chain_t_bwd(prev, pos_t, pose, ctx.chain, g.contiguous(), ctx.omega)
+        return dw, db, dprev, None, dpose, None, None, None, None
+
+
+def sine_chain_t_train(
+    prev: Optional[torch.Tensor],
+    pos_t: torch.Tensor,
+    pose: torch.Tensor,
+    layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    head: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    dtype: torch.dtype,
+    omega: float = 30.0,
+) -> torch.Tensor:
+    """Differentiable ``sine_chain_t`` over f32 (W (Co, Ci), b) parameters:
+    one K1 launch forward, one K4 launch backward (their plain versions on
+    the CPU)."""
+    mats = list(layers) + ([head] if head is not None else [])
+    w32 = torch.cat([w.reshape(-1) for w, _ in mats])
+    b32 = torch.cat([b.reshape(-1) for _, b in mats])
+    specs = chain_specs([tuple(w.shape) for w, _ in mats])
+    return SineChainFunction.apply(w32, b32, prev, pos_t, pose, specs, len(layers), omega, dtype)

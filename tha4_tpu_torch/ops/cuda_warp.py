@@ -7,8 +7,8 @@ padding_mode='border', align_corners=False)`` on NHWC images exactly: unlike
 the TPU kernel there is no displacement window and no bf16 lerp weight, so
 ``'auto'`` and ``'strict'`` are the same thing in ``ops.warp``.
 
-Inference only: no autograd (the gradient-emitting variant comes with the
-training path).
+No autograd: the students that train so far take no gradient through a
+warp; the gradient-emitting variant (K3) comes with the body student.
 """
 
 from __future__ import annotations

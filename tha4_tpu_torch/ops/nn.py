@@ -1,0 +1,149 @@
+"""The teacher's building blocks (counterpart of ``tha4_tpu/ops/nn.py``,
+only what the mode_12 face teacher uses).
+
+Modules hold f32 parameters under the reference ``state_dict`` keys: a conv,
+downsample or upsample block is ``nn.Sequential(conv, norm, act)`` (keys
+``….0.weight``, ``….1.weight``, ``….1.bias``), a resnet block keeps
+``resnet_path.{0,1,3,4}``.  They run on NCHW tensors; the models permute
+NHWC images in and out, which gives cuDNN channels-last memory.
+
+Precision follows the JAX package: a convolution casts its weight and bias
+to the input's dtype (bf16 operands, f32 accumulation in cuDNN); instance
+norm statistics are f32 and its affine is f32, its output in the input's
+dtype.  Convolutions are cuDNN's: the JAX package leaves them to XLA,
+outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype, casting weight and
+    bias as ``tha4_tpu/ops/nn.py:conv2d`` does (free once they already are)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype.  The weight stays in
+    torch's (I, O, kh, kw) layout; the JAX package stores the equivalent
+    forward conv over the 2x-dilated input, flipped and transposed
+    (``tha4_tpu/ops/nn.py:190-209``), and the weight bridge converts."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
+
+
+def instance_norm(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor], eps: float = 1e-5):
+    """InstanceNorm2d(affine) over NCHW, the arithmetic of
+    ``tha4_tpu/ops/nn.py:instance_norm``.
+
+    bf16: the mean accumulates in f32 without an f32 copy of x; x - mean is
+    taken in bf16 (mean rounded to bf16), its square in bf16 summed in f32;
+    the normalised value and the affine are f32, the output bf16.  f32: plain."""
+    if x.dtype == torch.bfloat16:
+        mean = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+        centered = x - mean.to(x.dtype)
+        var = (centered * centered).mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+        out = centered.float() * torch.rsqrt(var + eps)
+    else:
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+        out = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight[:, None, None] + bias[:, None, None]
+    return out.to(x.dtype)
+
+
+class InstanceNorm2d(nn.Module):
+    """Affine instance norm with the reference's ``weight`` / ``bias`` keys, f32."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x, self.weight, self.bias)
+
+
+def nonlinearity(name: str) -> nn.Module:
+    """The activations the shipped teachers use (``tha4_tpu/ops/nn.py:270``)."""
+    if name == "relu":
+        return nn.ReLU()
+    if name == "leaky_relu_02":
+        return nn.LeakyReLU(0.2)
+    raise ValueError(f"Unknown nonlinearity {name}")
+
+
+# ---------------------------------------------------------------------------
+# Initialisation: the distributions of tha4_tpu/ops/nn.py:39-146, drawn from a
+# torch.Generator
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_conv_(conv: nn.Module, method: str, gen: torch.Generator) -> None:
+    """'he': N(0, 2 / fan_in) with torch's fan_in (in x kh x kw for a conv,
+    out x kh x kw for a transposed conv); 'zero'.  A bias is U(+-1/sqrt(fan_in))."""
+    kh, kw = conv.kernel_size
+    fan_in = (conv.out_channels if isinstance(conv, nn.ConvTranspose2d) else conv.in_channels) * kh * kw
+    if method == "he":
+        conv.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
+    elif method == "zero":
+        conv.weight.zero_()
+    else:
+        raise ValueError(f"Invalid initialization method {method}")
+    if conv.bias is not None:
+        bound = 1.0 / math.sqrt(fan_in)
+        conv.bias.uniform_(-bound, bound, generator=gen)
+
+
+def conv3(cin: int, cout: int, bias: bool) -> Conv2d:
+    return Conv2d(cin, cout, kernel_size=3, padding=1, bias=bias)
+
+
+def conv_block(cin: int, cout: int, nonlin: str) -> nn.Sequential:
+    """conv3(bias=False) -> InstanceNorm(affine) -> nonlinearity."""
+    return nn.Sequential(conv3(cin, cout, bias=False), InstanceNorm2d(cout), nonlinearity(nonlin))
+
+
+def downsample_block(cin: int, cout: int, nonlin: str) -> nn.Sequential:
+    """Conv2d(4, stride 2, pad 1, bias=False) -> norm -> nonlinearity."""
+    return nn.Sequential(Conv2d(cin, cout, kernel_size=4, stride=2, padding=1, bias=False), InstanceNorm2d(cout), nonlinearity(nonlin))
+
+
+def upsample_block(cin: int, cout: int, nonlin: str) -> nn.Sequential:
+    """ConvTranspose2d(4, stride 2, pad 1, bias=False) -> norm -> nonlinearity."""
+    return nn.Sequential(ConvTranspose2d(cin, cout, kernel_size=4, stride=2, padding=1, bias=False), InstanceNorm2d(cout), nonlinearity(nonlin))
+
+
+class ResnetBlock(nn.Module):
+    """x + norm(conv3(act(norm(conv3(x))))), keys ``resnet_path.{0,1,3,4}``."""
+
+    def __init__(self, c: int, nonlin: str):
+        super().__init__()
+        self.resnet_path = nn.Sequential(
+            conv3(c, c, bias=False), InstanceNorm2d(c), nonlinearity(nonlin), conv3(c, c, bias=False), InstanceNorm2d(c)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.resnet_path(x)
+
+
+def reset_convs_(module: nn.Module, method: str, gen: torch.Generator) -> None:
+    """Initialise every conv under ``module`` in order (norms keep 1 and 0)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            init_conv_(m, method, gen)

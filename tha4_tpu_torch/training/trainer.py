@@ -1,0 +1,143 @@
+"""The training loop: examples-seen accounting, cadences, resume
+(counterpart of ``tha4_tpu/training/trainer.py``).
+
+  * progress is counted in examples seen, never steps;
+  * a checkpoint at every boundary of ``checkpoint_examples`` into
+    ``{prefix}/checkpoint/{i:04d}`` (and checkpoint 0 on a fresh start), a
+    rolling snapshot every ``examples_per_snapshot`` examples;
+  * resume from the newest loadable state whose progress fits the target;
+  * the lr is ``lr_fn(examples_seen)`` before every step;
+  * the named losses go to ``{prefix}/log/scalars.jsonl`` every
+    ``log_every_seconds``.
+
+Eager PyTorch runs one optimizer step per iteration: the JAX trainer's
+chunk planning and compile-ahead exist for XLA's compiled multi-step
+programs and have no counterpart here.  A step's randomness comes from a
+``torch.Generator`` seeded from (the run's key, the step index), so a step's
+batch does not depend on where a run stopped and resumed.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from tha4_tpu_torch.training import checkpoint as ckpt
+
+logger = logging.getLogger(__name__)
+
+KEY_MODULE = "module"
+_MASK64 = (1 << 64) - 1
+
+
+def get_least_greater_multiple(value: int, multiple: int) -> int:
+    """The smallest multiple of ``multiple`` strictly greater than ``value``."""
+    return (value // multiple + 1) * multiple
+
+
+def step_seed(key: int, step: int) -> int:
+    """A 64-bit seed for step ``step`` of the stream ``key``: SplitMix64's
+    finaliser over key + (step + 1) * golden ratio."""
+    z = (key + (step + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+@dataclass
+class TrainerConfig:
+    prefix: str
+    checkpoint_examples: List[int]  # cumulative boundaries
+    total_batch_size: int = 8
+    examples_per_snapshot: int = 10_000
+    random_seed: int = 2965603729
+    log_every_seconds: float = 10.0
+
+
+class Trainer:
+    """Drives one student's training.
+
+      init_module(generator) -> nn.Module (on its device)
+      make_optimizer(module) -> torch.optim.Optimizer
+      train_step(module, optimizer, generator, lr) -> {name: scalar tensor}
+          one optimizer step; ``generator`` is this step's own
+      lr_fn(examples_seen) -> float
+    """
+
+    def __init__(
+        self,
+        cfg: TrainerConfig,
+        init_module: Callable[[torch.Generator], nn.Module],
+        make_optimizer: Callable[[nn.Module], torch.optim.Optimizer],
+        train_step: Callable,
+        lr_fn: Callable[[int], float],
+    ):
+        self.cfg = cfg
+        self.init_module = init_module
+        self.make_optimizer = make_optimizer
+        self.train_step = train_step
+        self.lr_fn = lr_fn
+
+    def _fresh_state(self):
+        root = torch.Generator().manual_seed(self.cfg.random_seed)
+        module = self.init_module(root)
+        key = int(torch.randint(0, 2**62, (1,), generator=root))
+        return module, self.make_optimizer(module), key
+
+    def _save(self, directory: str, module, optimizer, examples_seen: int, key: int) -> None:
+        ckpt.save_state(directory, {KEY_MODULE: module}, {KEY_MODULE: optimizer}, examples_seen, key)
+
+    def _load_or_init(self, target_examples: int):
+        module, optimizer, key = self._fresh_state()
+        resume = ckpt.find_resume_dir(self.cfg.prefix, target_examples, self.cfg.total_batch_size, [KEY_MODULE])
+        if resume is not None:
+            logger.info("Resuming from %s", resume)
+            examples_seen, key = ckpt.load_state(resume, {KEY_MODULE: module}, {KEY_MODULE: optimizer})
+            return module, optimizer, examples_seen, key
+        logger.info("Starting fresh training state")
+        self._save(ckpt.checkpoint_dir(self.cfg.prefix, 0), module, optimizer, 0, key)
+        return module, optimizer, 0, key
+
+    def train(self, target_examples: Optional[int] = None) -> Dict:
+        cfg = self.cfg
+        if target_examples is None:
+            target_examples = cfg.checkpoint_examples[-1]
+        log_path = os.path.join(cfg.prefix, "log", "scalars.jsonl")
+        os.makedirs(os.path.dirname(log_path), exist_ok=True)
+
+        module, optimizer, examples_seen, key = self._load_or_init(target_examples)
+        next_snapshot = get_least_greater_multiple(examples_seen, cfg.examples_per_snapshot)
+        checkpoints_due = [c for c in cfg.checkpoint_examples if examples_seen < c <= target_examples]
+        metrics: Dict[str, torch.Tensor] = {}
+        t_start = last_log_time = time.monotonic()
+        with open(log_path, "a") as log_file:
+            while examples_seen < target_examples:
+                lr = self.lr_fn(examples_seen)
+                step = examples_seen // cfg.total_batch_size
+                metrics = self.train_step(module, optimizer, torch.Generator().manual_seed(step_seed(key, step)), lr)
+                examples_seen += cfg.total_batch_size
+
+                now = time.monotonic()
+                if now - last_log_time > cfg.log_every_seconds:
+                    row = {k: float(v) for k, v in metrics.items()}
+                    row.update(examples_seen=examples_seen, lr=lr, elapsed=now - t_start)
+                    log_file.write(json.dumps(row) + "\n")
+                    log_file.flush()
+                    logger.info("Showed %d training examples. loss=%.5f", examples_seen, row.get("loss", -1.0))
+                    last_log_time = now
+
+                if examples_seen >= next_snapshot:
+                    self._save(ckpt.snapshot_dir(cfg.prefix), module, optimizer, examples_seen, key)
+                    next_snapshot = get_least_greater_multiple(examples_seen, cfg.examples_per_snapshot)
+                while checkpoints_due and examples_seen >= checkpoints_due[0]:
+                    index = cfg.checkpoint_examples.index(checkpoints_due.pop(0)) + 1
+                    self._save(ckpt.checkpoint_dir(cfg.prefix, index), module, optimizer, examples_seen, key)
+                    logger.info("Wrote checkpoint %04d at %d examples", index, examples_seen)
+        return {"module": module, "optimizer": optimizer, "examples_seen": examples_seen, "key": key, "metrics": metrics}
