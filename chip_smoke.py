@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame and face-student training on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame and both students' training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,9 @@ Phases, one or more lines each:
 3. K1 (``sine_chain_t``) against its plain PyTorch version at the four call
    shapes of one frame, f32 and bf16, with max-abs error and median times;
 4. K2 (``grid_sample_fast``) against its plain version at 512^2 x 4, f32 and
-   bf16, on a smooth grid and on one with displacements past 150 px;
+   bf16, on a smooth grid and on one with displacements past 150 px, with
+   times; then at the body path's teacher warps, B = 8 at 128^2, 192^2,
+   256^2 and 512^2, f32 and bf16, smooth and far grids;
 5. the main path: a seeded random-init character model at full width
    (written to a temporary directory), loaded through
    ``CharacterModel.load(...).get_poser(...)``, answers 8 pose requests in
@@ -32,10 +34,41 @@ Phases, one or more lines each:
    must load; resuming from the first must reproduce the run; the f32
    student gradients on the card (K1 + K4) must match the plain backward
    on the CPU for the same loss cotangent; ms/step at batch 8 in bf16 and
-   f32 is printed, split into teacher, student and Adam.
+   f32 is printed, split into teacher, student and Adam;
+8. K3 (``grid_sample_corners``, the differentiable warp's forward) against
+   its plain version at the body student's head warp, (8, 512^2, 4) f32
+   and bf16, smooth and far (> 150 px) grids: out / dx / dy and the grid
+   gradient through the autograd Function, two calls bit-identical, median
+   times beside ``F.grid_sample`` forward + grid backward;
+9. K5 (``poly_sin`` forward and backward) at the body student's widest
+   layer, (8, 512^2, 90), f32 -> bf16 (the mixed path), bf16 and f32;
+10. the body teacher: a seeded full-width random mode_07 (zero-init layers
+    brought to life by ``random_teacher_07``) at B = 1 and 8, bf16 and f32:
+    33 finite outputs of the expected shapes through exactly 5 K2 launches
+    a call; the f32 card outputs at B = 1 against the same teacher's plain
+    CPU run and its f64 run on the CPU (the exact answer, which says which
+    f32 side is off), and each U-Net alone on the CPU run's inputs, with
+    the bf16 teacher's distance from f64 beside each bar (it must fail
+    them); ms per call and the convolutions' multiply-adds;
+11. the body-training path: ``DistillationJobs(...).make_body_trainer(
+    phases).train()`` with the default six phases scaled to 32 steps at
+    batch 8, bf16 with the selective-f32 student, across two checkpoint
+    boundaries.  Losses must be finite; each step must launch K2 five
+    times, K3 once, each poly_sin kernel 9 times, K1 and K4 never; resuming
+    from checkpoint 1 must reproduce the run; the f32 student gradients on
+    the card must match the plain backward on the CPU for the same labels
+    and poses, split at the head output (the trunk on the card's head
+    cotangent; the head, K3 and the loss on the card's head output), and
+    end to end once the pixels where the loss is not smooth between the two
+    devices (a texel edge or an L1 kink crossed) are dropped, with the
+    head's grid-change rows and every level nonzero; ms/step at batch 8 in
+    bf16 mixed and f32, split into teacher, student and Adam.
 
-The line before the last is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.  Any failure raises and the
+The line before the last is a JSON object with one entry per kernel, each
+with its bound: the larger of the bytes it must move over 3.35 TB/s and
+its multiply-adds over the card's peak for their type (989 TFLOP/s bf16, 67
+TFLOP/s f32; the H100 SXM data sheet); the last is
+``{"ok": true, "device": {...}}``.  Any failure raises and the
 script exits non-zero without printing that line; so does a machine without
 CUDA, and a directory without the rest of the repository.
 """
@@ -85,11 +118,55 @@ K4_BF16_ATOL = 4 * 2.0**-8
 # on the CPU, same cotangent: tests/test_pallas_siren.py:95-121, the bar
 # for real level shapes at omega = 30.
 STEP_F32_ATOL = 1e-3
+# The body student's f32 gradients end to end, card against CPU, once the
+# pixels where the loss is not smooth between the two devices' head outputs
+# are dropped: ten times the trunk's 1.4e-6 on the same cotangent, where the
+# whole loss reads 1.1e-3.
+STEP_MASKED_ATOL = 1e-5
 # Resume from checkpoint 1 against the uninterrupted run.  Bit-equal is
 # expected (K1, K2 and K4 are deterministic, so are cuDNN's forward convs);
 # the bar leaves room for a teacher conv whose sum order varied, which
 # would move a label by a bf16 step and an Adam step by a fraction of lr.
 RESUME_ATOL = 1e-6
+# K3: out in the same f32 order as its plain version, then the image dtype's
+# cast; dx / dy f32; dgrid (the shared elementwise backward over K3's and the
+# plain version's fields) over its largest, tests/test_pallas_warp.py:44-60.
+K3_DGRID_ATOL = 2e-5
+# K5: the same f32 operations, none contracted, then one rounding.
+K5_F32_ATOL = 1e-6
+K5_BF16_ATOL = 2.0**-8  # one bf16 step at |x| <= 1
+# mode_07 f32 on the card against its plain run on the CPU, and each of
+# them against the same teacher's f64 run on the CPU, the exact answer for
+# these f32 weights and inputs.  Readings on an H100 (card f32 | CPU f32 |
+# card bf16, each against f64): the random full-width mode_12 networks carry
+# both f32 runs equally far, face_morphed_full 6.2e-4 | 6.6e-4 | 1.5; the
+# upscaler warps that across the hard edge of the pasted face square, posed
+# 1.1e-3 | 1.9e-3 | 0.91; grid change 9.2e-6 | 1.4e-5 | 3.0e-2.  The card
+# vs CPU bars: the grid change's is the body morpher's and upscaler's bar
+# (tests/test_teacher_nets.py:293,335, 1e-4) doubled for the cascade; the
+# others are the 2e-3 / 3e-3 of tests/test_torch_body_teacher.py, since the
+# CPU's own f32 error reaches 6.6e-4 / 1.9e-3.  Against f64, twice the
+# card's reading rounded up, where bf16 fails by 10^3.  Every one of the 33
+# outputs must clear 70 dB PSNR card against CPU (that test's floor) and be
+# no further from f64 than the CPU's f32 run, within TEACHER_EXACT_RATIO
+# (read: 1.34x at most); tests/test_torch_body_teacher.py holds the port
+# so against the JAX package at 1.5x.
+TEACHER_F32_ATOL = {"posed": 3e-3, "grid_change": 2e-4, "face_morphed_full": 2e-3}
+TEACHER_F32_MIN_PSNR = 70.0
+TEACHER_EXACT_ATOL = {"posed": 3e-3, "grid_change": 2e-5, "face_morphed_full": 2e-3}
+TEACHER_EXACT_RATIO = 2.0
+# Each U-Net alone on the CPU f32 run's inputs.  Card vs CPU, at those bars
+# doubled: all of the body morpher's outputs, and the upscaler's alpha and
+# grid change.  Against f64, all ten outputs, the upscaler's RGBA images
+# too: the card reads 1.7e-6 (direct) to 2.7e-5 (warped), the CPU's f32
+# 5.2e-4 / 2.9e-3 (it is the side that is off), bf16 2.4e-2 / 0.12; no
+# bf16 output passes the bar.
+UNET_F32_ATOL = 2e-4
+UNET_EXACT_ATOL = 1e-4
+UNET_OUTPUT_NAMES = ("merged", "alpha", "warped", "grid_change", "direct")
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 TRAIN_STEPS = 32
 TRAIN_BATCH = 8
 OUTPUT_NAMES = ["blended", "alpha", "color_change", "warped", "grid_change", "face"]
@@ -115,6 +192,23 @@ def _time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _bound(nbytes: float, flops: float, tag: str) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak for their type, whichever is larger."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS[tag] * 1e3
+    return {"bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _chain_macs(chain, n: int, hw: int) -> int:
+    """Multiply-adds of one pass of a packed chain over n x hw pixels."""
+    return sum(int(ci) * int(co) for ci, co, _, _ in chain.specs) * n * hw
 
 
 def _bench_pose(pose_parameters, i: int) -> np.ndarray:
@@ -181,7 +275,7 @@ def phase_k1(torch, face, body) -> dict:
     from tha4_tpu_torch.ops import cuda_siren
 
     gen = torch.Generator().manual_seed(SEED + 1)
-    results = {"f32_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}}
+    results = {"f32_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
     face_cfg, body_cfg = face.cfg, body.cfg
     for dtype, tag in [(torch.float32, "f32"), (torch.bfloat16, "bf16")]:
         chains = [face.pack(dtype, "cuda")] + body.pack(dtype, "cuda")
@@ -192,9 +286,12 @@ def phase_k1(torch, face, body) -> dict:
             ("L2", chains[3], body_cfg.levels[2].image_size, body_cfg.levels[2].intermediate_channels, body_cfg.pose_size),
         ]
         k_total = p_total = 0.0
+        nbytes = macs = 0
         for name, chain, size, cp, pose_dim in calls:
             prev, pos, pose = _level_inputs(torch, gen, size, cp, pose_dim, dtype)
             out = cuda_siren.sine_chain_t(prev, pos, pose, chain)
+            nbytes += _nbytes(prev, pos, pose, chain.w, chain.b, out)
+            macs += _chain_macs(chain, 1, size * size)
             ref = cuda_siren.chain_t_plain(prev, pos, pose, chain)
             torch.cuda.synchronize()
             if out.shape != ref.shape or out.dtype != dtype:
@@ -213,7 +310,9 @@ def phase_k1(torch, face, body) -> dict:
                 raise AssertionError(f"K1 {name} {tag}: max_abs_err {err} over the bar {bar}")
             results[f"{tag}_err"] = max(results[f"{tag}_err"], err)
         results["ms"][tag], results["plain_ms"][tag] = k_total, p_total
-        print(f"K1 per frame {tag}: kernel {k_total:.4f} ms, plain {p_total:.4f} ms")
+        results["bound"][tag] = _bound(nbytes, 2.0 * macs, tag)
+        print(f"K1 per frame {tag}: kernel {k_total:.4f} ms, plain {p_total:.4f} ms; bound {results['bound'][tag]['bound_ms']:.4f} ms "
+              f"({results['bound'][tag]['bound_by']}: {macs / 1e9:.2f} G multiply-adds, {nbytes / 1e6:.1f} MB)")
     return results
 
 
@@ -233,7 +332,7 @@ def phase_k2(torch) -> dict:
         "far>150px": identity + 200.0 * px + smooth * (50.0 * px),
     }
     image32 = (torch.rand((1, size, size, 4), generator=gen) * 2.0 - 1.0).cuda()
-    results = {"f32_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}}
+    results = {"f32_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}, "library_ms": {}, "bound": {}}
     for dtype, tag, bar in [(torch.float32, "f32", K2_F32_ATOL), (torch.bfloat16, "bf16", K2_BF16_ATOL)]:
         image = image32.to(dtype)
         for gname, grid in grids.items():
@@ -244,13 +343,49 @@ def phase_k2(torch) -> dict:
             err = float((out.float() - ref.float()).abs().max())
             k_ms = _time_ms(lambda: cuda_warp.grid_sample_fast(image, grid))
             p_ms = _time_ms(lambda: cuda_warp.grid_sample_bilinear_border(image, grid))
+            # One PyTorch call of the same function; it takes the grid in the
+            # image's dtype (cast before the clock).
+            image_nchw, grid_t = image.permute(0, 3, 1, 2), grid.to(dtype)
+            l_ms = _time_ms(lambda: torch.nn.functional.grid_sample(
+                image_nchw, grid_t, mode="bilinear", padding_mode="border", align_corners=False))
             print(f"K2 {tag:4s} {size}^2x4 {gname}: max_abs_err {err:.3e} (bar {bar:.1e}), "
-                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, F.grid_sample {l_ms:.4f} ms")
             if out.dtype != dtype or not err <= bar:
                 raise AssertionError(f"K2 {tag} {gname}: max_abs_err {err} over the bar {bar} (dtype {out.dtype})")
             results[f"{tag}_err"] = max(results[f"{tag}_err"], err)
             if gname.startswith("smooth"):
-                results["ms"][tag], results["plain_ms"][tag] = k_ms, p_ms
+                results["ms"][tag], results["plain_ms"][tag], results["library_ms"][tag] = k_ms, p_ms, l_ms
+                # 3 lerps (a multiply and an add each) per output value.
+                results["bound"][tag] = _bound(_nbytes(image, grid, out), 6.0 * out.numel(), tag)
+
+    # The body-training path's shapes: the mode_07 teacher warps at B = 8
+    # at 128^2 (combiner), 192^2 (face morpher), 256^2 (body morpher) and
+    # 512^2 (upscaler, twice), in bf16, and in f32 for the f32 step.
+    n = TRAIN_BATCH
+    for size in (128, 192, 256, 512):
+        identity = warp.identity_grid(size, size, "cuda")[None]
+        coarse = torch.randn((n, 2, 8, 8), generator=gen)
+        smooth = torch.nn.functional.interpolate(coarse, size=(size, size), mode="bilinear", align_corners=False)
+        smooth = (smooth / smooth.abs().max()).permute(0, 2, 3, 1).contiguous().cuda()
+        px = 2.0 / size
+        # The B = 1 grids scaled to the size: at 512^2 a shift of 200 px plus 50 px of variation.
+        far = size * 200.0 / 512
+        grids = {"smooth": identity + smooth * (30.0 * px), f"far>{far * 0.75:.0f}px": identity + far * px + smooth * (far * 0.25 * px)}
+        image32 = (torch.rand((n, size, size, 4), generator=gen) * 2.0 - 1.0).cuda()
+        errs = []
+        for dtype, tag, bar in [(torch.float32, "f32", K2_F32_ATOL), (torch.bfloat16, "bf16", K2_BF16_ATOL)]:
+            image = image32.to(dtype)
+            for gname, grid in grids.items():
+                grid = grid.contiguous()
+                out = cuda_warp.grid_sample_fast(image, grid)
+                ref = cuda_warp.grid_sample_bilinear_border(image, grid)
+                err = float((out.float() - ref.float()).abs().max())
+                errs.append(f"{tag} {gname} {err:.1e}")
+                if out.dtype != dtype or out.shape != ref.shape or not err <= bar:
+                    raise AssertionError(f"K2 N={n} {size}^2 {tag} {gname}: max_abs_err {err} over the bar {bar} ({out.dtype}, {tuple(out.shape)})")
+                results[f"{tag}_err"] = max(results[f"{tag}_err"], err)
+        print(f"K2 N={n} {size}^2x4 (the body path's teacher warps): max_abs_err " + ", ".join(errs)
+              + f" (bars {K2_F32_ATOL:.0e} f32, {K2_BF16_ATOL:.1e} bf16)")
     return results
 
 
@@ -352,7 +487,7 @@ def phase_k4(torch, face, body) -> dict:
     from tha4_tpu_torch.ops import cuda_siren
 
     gen = torch.Generator().manual_seed(SEED + 3)
-    results = {"f32_err": 0.0, "f32_abs_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}}
+    results = {"f32_err": 0.0, "f32_abs_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
     level1 = body.cfg.levels[1]
     for dtype, tag, bar in [(torch.float32, "f32", K4_F32_ATOL), (torch.bfloat16, "bf16", K4_BF16_ATOL)]:
         cases = [
@@ -395,6 +530,10 @@ def phase_k4(torch, face, body) -> dict:
             results[f"{tag}_err"] = max(results[f"{tag}_err"], worst)
             if name == "face":
                 results["ms"][tag], results["plain_ms"][tag] = k_ms, p_ms
+                # Three chain products: the forward recomputed, g through
+                # each layer, and the weight gradients.
+                results["bound"][tag] = _bound(_nbytes(prev, pos, pose, chain.w, chain.b, g, *first),
+                                               2.0 * 3 * _chain_macs(chain, n, hw), tag)
     return results
 
 
@@ -537,6 +676,454 @@ def phase_training(torch, workdir: str) -> dict:
     return {"launches": launches, "steps": steps, "step_err": step_err, "resume_diff": max(diffs), "wall_s": wall}
 
 
+def phase_k3(torch) -> dict:
+    """K3 at the body student's head warp: (8, 512^2, 4), f32 and bf16."""
+    from tha4_tpu_torch.ops import cuda_warp, warp
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    n, size = TRAIN_BATCH, 512
+    identity = warp.identity_grid(size, size, "cuda")[None]
+    coarse = torch.randn((n, 2, 8, 8), generator=gen)
+    smooth = torch.nn.functional.interpolate(coarse, size=(size, size), mode="bilinear", align_corners=False)
+    smooth = (smooth / smooth.abs().max()).permute(0, 2, 3, 1).contiguous().cuda()
+    px = 2.0 / size
+    grids = {"smooth<=30px": identity + smooth * (30.0 * px), "far>150px": identity + 200.0 * px + smooth * (50.0 * px)}
+    image32 = (torch.rand((n, size, size, 4), generator=gen) * 2.0 - 1.0).cuda()
+    g32 = torch.randn((n, size, size, 4), generator=gen).cuda()
+    results = {"f32_err": 0.0, "bf16_err": 0.0, "dgrid_err": 0.0, "ms": {}, "plain_ms": {}, "fwd_bwd_ms": {}, "library_ms": {}, "bound": {}}
+    for dtype, tag, out_bar in [(torch.float32, "f32", K2_F32_ATOL), (torch.bfloat16, "bf16", K2_BF16_ATOL)]:
+        image, g = image32.to(dtype), g32.to(dtype)
+        for gname, grid in grids.items():
+            grid = grid.contiguous()
+            first = cuda_warp.grid_sample_corners(image, grid)
+            again = cuda_warp.grid_sample_corners(image, grid)
+            ref = cuda_warp.grid_sample_corners_plain(image, grid)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"K3 {tag} {gname}: two calls differ")
+            errs = [float((a.float() - r.float()).abs().max()) for a, r in zip(first, ref)]
+            if first[0].dtype != dtype or not errs[0] <= out_bar or not max(errs[1:]) <= K2_F32_ATOL:
+                raise AssertionError(f"K3 {tag} {gname}: out/dx/dy errors {errs} (bars {out_bar}, {K2_F32_ATOL})")
+            # The grid gradient through the autograd Function (K3 on the card)
+            # against the same backward over the plain version's fields.
+            dgrids = []
+            for _ in range(2):
+                gr = grid.detach().requires_grad_()
+                (cuda_warp.grid_sample_train(image, gr).float() * g.float()).sum().backward()
+                dgrids.append(gr.grad)
+            dref = cuda_warp.grid_sample_grad(g, ref[1], ref[2], grid, size, size)
+            torch.cuda.synchronize()
+            if not torch.equal(dgrids[0], dgrids[1]):
+                raise AssertionError(f"K3 {tag} {gname}: two backward calls differ")
+            dgrid_err = float((dgrids[0] - dref).abs().max()) / max(float(dref.abs().max()), 1e-12)
+
+            def fwd_bwd(grid=grid):
+                _, dx, dy = cuda_warp.grid_sample_corners(image, grid)
+                return cuda_warp.grid_sample_grad(g, dx, dy, grid, size, size)
+
+            image_nchw, g_nchw, grid_t = image.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2), grid.to(dtype)
+
+            def library(grid_t=grid_t):
+                gr = grid_t.detach().requires_grad_()
+                out = torch.nn.functional.grid_sample(image_nchw, gr, mode="bilinear", padding_mode="border", align_corners=False)
+                return torch.autograd.grad(out, gr, g_nchw)
+
+            k_ms = _time_ms(lambda: cuda_warp.grid_sample_corners(image, grid))
+            p_ms = _time_ms(lambda: cuda_warp.grid_sample_corners_plain(image, grid))
+            kb_ms = _time_ms(fwd_bwd)
+            l_ms = _time_ms(library)
+            print(f"K3 {tag:4s} N={n} {size}^2x4 {gname}: max_abs_err out {errs[0]:.3e} dx {errs[1]:.3e} dy {errs[2]:.3e}, "
+                  f"dgrid scaled {dgrid_err:.2e} (bar {K3_DGRID_ATOL:.0e}); two calls bit-identical; "
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; forward + grid backward {kb_ms:.4f} ms, "
+                  f"F.grid_sample forward + grid backward {l_ms:.4f} ms")
+            if not dgrid_err <= K3_DGRID_ATOL:
+                raise AssertionError(f"K3 {tag} {gname}: dgrid scaled error {dgrid_err} over {K3_DGRID_ATOL}")
+            results[f"{tag}_err"] = max(results[f"{tag}_err"], max(errs))
+            results["dgrid_err"] = max(results["dgrid_err"], dgrid_err)
+            if gname.startswith("smooth"):
+                results["ms"][tag], results["plain_ms"][tag] = k_ms, p_ms
+                results["fwd_bwd_ms"][tag], results["library_ms"][tag] = kb_ms, l_ms
+                # 3 lerps for out, 2 more for dx: 10 operations per value.
+                results["bound"][tag] = _bound(_nbytes(image, grid, *first), 10.0 * first[0].numel(), tag)
+    return results
+
+
+def phase_poly_sin(torch) -> dict:
+    """K5 at the body student's widest layer: (8, 512^2, 90)."""
+    from tha4_tpu_torch.ops import cuda_poly_sin
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    shape = (TRAIN_BATCH, 512, 512, 90)
+    a32 = (torch.randn(shape, generator=gen) * 40.0).cuda()  # omega * pre reaches +-150
+    g32 = torch.randn(shape, generator=gen).cuda()
+    results = {}
+    for tag, a_dtype, out_dtype in [("f32->bf16", torch.float32, torch.bfloat16), ("bf16", torch.bfloat16, torch.bfloat16),
+                                    ("f32", torch.float32, torch.float32)]:
+        a, g = a32.to(a_dtype), g32.to(out_dtype)
+        out = cuda_poly_sin.poly_sin_forward(a, out_dtype)
+        da = cuda_poly_sin.poly_sin_backward(a, g)
+        out_ref = cuda_poly_sin.poly_sin_plain(a, out_dtype)
+        da_ref = cuda_poly_sin.poly_sin_bwd_plain(a, g)
+        torch.cuda.synchronize()
+        errs = [float((x.float() - r.float()).abs().max()) for x, r in ((out, out_ref), (da, da_ref))]
+        bars = [K5_F32_ATOL if t == torch.float32 else K5_BF16_ATOL * s for t, s in ((out_dtype, 1.0), (a_dtype, float(da_ref.float().abs().max())))]
+        times = {
+            "fwd": _time_ms(lambda: cuda_poly_sin.poly_sin_forward(a, out_dtype), iters=10),
+            "bwd": _time_ms(lambda: cuda_poly_sin.poly_sin_backward(a, g), iters=10),
+            "plain_fwd": _time_ms(lambda: cuda_poly_sin.poly_sin_plain(a, out_dtype), iters=10),
+            "plain_bwd": _time_ms(lambda: cuda_poly_sin.poly_sin_bwd_plain(a, g), iters=10),
+            "torch_sin": _time_ms(lambda: torch.sin(a), iters=10),
+        }
+        pt = "bf16" if a_dtype == torch.bfloat16 else "f32"
+        # About 20 f32 operations per element (reduction, polynomial, cast).
+        bound = {"fwd": _bound(_nbytes(a, out), 20.0 * a.numel(), pt), "bwd": _bound(_nbytes(a, g, da), 21.0 * a.numel(), pt)}
+        print(f"K5 poly_sin {tag:9s} {shape}: max_abs_err fwd {errs[0]:.2e} bwd {errs[1]:.2e} (bars {bars[0]:.1e}, {bars[1]:.1e}); "
+              f"kernel fwd {times['fwd']:.4f} ms (bound {bound['fwd']['bound_ms']:.4f}), bwd {times['bwd']:.4f} ms "
+              f"(bound {bound['bwd']['bound_ms']:.4f}); plain fwd {times['plain_fwd']:.4f} ms, bwd {times['plain_bwd']:.4f} ms; "
+              f"torch.sin {times['torch_sin']:.4f} ms")
+        if out.dtype != out_dtype or da.dtype != a_dtype or not (errs[0] <= bars[0] and errs[1] <= bars[1]):
+            raise AssertionError(f"K5 {tag}: errors {errs} over {bars} (dtypes {out.dtype}, {da.dtype})")
+        results[tag] = {"errs": errs, "bound": bound, **times}
+    return results
+
+
+def _conv_macs(torch, teacher, run) -> int:
+    """Multiply-adds of every convolution in one ``run()`` of ``teacher``,
+    counted from the shapes by forward hooks."""
+    total = [0]
+
+    def hook(module, inputs, output):
+        kh, kw = module.kernel_size
+        if isinstance(module, torch.nn.ConvTranspose2d):  # each input value feeds cout x kh x kw outputs
+            total[0] += inputs[0].numel() * module.out_channels * kh * kw // module.groups
+        else:
+            total[0] += output.numel() * module.in_channels * kh * kw // module.groups
+
+    handles = [m.register_forward_hook(hook) for m in teacher.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def phase_body_teacher(torch, teacher_params, image) -> dict:
+    """The full-width mode_07 at B = 1 and 8, bf16 and f32."""
+    from tha4_tpu_torch.distiller.pose_dataset import sample_poses
+    from tha4_tpu_torch.models import body_morpher
+    from tha4_tpu_torch.ops import cuda_warp
+    from tha4_tpu_torch.ops.resize import resize_bilinear
+    from tha4_tpu_torch.poser.modes import mode_07
+    from tha4_tpu_torch.poser.modes.pose_parameters import NUM_EYEBROW_PARAMS, NUM_FACE_PARAMS
+
+    checked = {"posed": 0, "grid_change": 3, "face_morphed_full": mode_07.INDEX_FACE_MORPHED_FULL}
+    results = {"ms": {}}
+    b1 = {}  # dtype tag -> (teacher, poses, the B = 1 outputs on the CPU)
+    for tag, dtype in [("bf16", torch.bfloat16), ("f32", torch.float32)]:
+        teacher = mode_07.Teacher.from_params(teacher_params).freeze(dtype, "cuda")
+        for n in (1, TRAIN_BATCH):
+            poses = sample_poses(torch.Generator().manual_seed(SEED + 20 + n), n).cuda()
+            images = image.to(dtype).expand(n, *image.shape[1:])
+            cuda_warp.grid_sample_fast.launches = 0
+            with torch.no_grad():
+                outs = mode_07.compute_outputs(teacher, images, poses.to(dtype))
+            torch.cuda.synchronize()
+            if cuda_warp.grid_sample_fast.launches != 5:
+                raise AssertionError(f"mode_07 {tag} B={n}: {cuda_warp.grid_sample_fast.launches} K2 launches, expected 5")
+            sizes = [512] * 6 + [256] * 5 + [192] * 8 + [128] * 14
+            if len(outs) != 33 or any(o.shape[:3] != (n, s, s) or o.dtype != dtype for o, s in zip(outs, sizes)):
+                raise AssertionError(f"mode_07 {tag} B={n}: outputs {[(tuple(o.shape), o.dtype) for o in outs]}")
+            if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+                raise AssertionError(f"mode_07 {tag} B={n}: non-finite output")
+            with torch.no_grad():
+                ms = _time_ms(lambda: mode_07.compute_outputs(teacher, images, poses.to(dtype)), iters=5, warmup=1)
+            results["ms"][f"{tag}_b{n}"] = ms
+            macs = _conv_macs(torch, teacher, lambda: mode_07.compute_outputs(teacher, images, poses.to(dtype)))
+            flow = float(outs[3].float().abs().max()) * 512 / 2.0
+            print(f"mode_07 {tag:4s} B={n}: 33 finite outputs of the expected shapes, 5 K2 launches; {ms:.3f} ms a call; "
+                  f"{macs / 1e12:.3f} T conv multiply-adds, {2.0 * macs / ms / 1e9:.1f} TFLOP/s over the call; "
+                  f"largest upscaler flow {flow:.2f} px")
+            if n == 1:
+                b1[tag] = (teacher, poses, [o.cpu() for o in outs])
+    card_teacher, poses, card = b1["f32"]
+    bf16_teacher, _, card16 = b1["bf16"]
+
+    # The same teacher on the CPU in f32 (the plain run) and in f64 (the
+    # exact answer for these f32 weights and inputs, which says which of the
+    # two f32 runs is off), at B = 1 on the card's poses.
+    cpu_teacher = mode_07.Teacher.from_params(teacher_params).freeze(torch.float32, "cpu")
+    exact_teacher = mode_07.Teacher.from_params(teacher_params).freeze(torch.float64, "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        plain = mode_07.compute_outputs(cpu_teacher, image.cpu(), poses.cpu())
+        cpu_s = time.perf_counter() - t0
+        exact = mode_07.compute_outputs(exact_teacher, image.cpu().double(), poses.cpu().double())
+    f64_s = time.perf_counter() - t0 - cpu_s
+
+    def gap(a, b) -> float:
+        return float((a.double() - b.double()).abs().max())
+
+    def gaps(on_card, on_cpu, on_exact, on_bf16) -> dict:
+        return {"card_cpu": gap(on_card, on_cpu), "card_exact": gap(on_card, on_exact),
+                "cpu_exact": gap(on_cpu, on_exact), "bf16_exact": gap(on_bf16, on_exact)}
+
+    def ratio_over(rows: dict) -> list:
+        # The card's f32 is no further from the exact answer than the CPU's
+        # f32 is, within TEACHER_EXACT_RATIO.
+        return [(k, r["card_exact"], r["cpu_exact"]) for k, r in rows.items()
+                if not r["card_exact"] <= TEACHER_EXACT_RATIO * r["cpu_exact"] + 1e-7]
+
+    rows = {i: gaps(card[i], plain[i], exact[i], card16[i]) for i in range(len(card))}
+    psnr = min(_psnr(a, b) for a, b in zip(card, plain))
+    print(f"mode_07 B=1 on the CPU: f32 {cpu_s:.1f} s, f64 {f64_s:.1f} s; max abs differences, card f32 vs CPU f32 | card f32 vs "
+          f"f64 | CPU f32 vs f64 | card bf16 vs f64: " + "; ".join(
+              f"{name} {rows[i]['card_cpu']:.2e} (bar {TEACHER_F32_ATOL[name]:.0e}) | {rows[i]['card_exact']:.2e} "
+              f"(bar {TEACHER_EXACT_ATOL[name]:.0e}) | {rows[i]['cpu_exact']:.2e} | {rows[i]['bf16_exact']:.2e}"
+              for name, i in checked.items()))
+    worst = max(rows.values(), key=lambda r: r["card_exact"] / max(r["cpu_exact"], 1e-12))
+    print(f"mode_07 B=1, all 33 outputs: card vs CPU PSNR min {psnr:.2f} dB (floor {TEACHER_F32_MIN_PSNR:.0f}); card f32 vs f64 "
+          f"at most {worst['card_exact'] / max(worst['cpu_exact'], 1e-12):.2f}x the CPU f32's distance (bar {TEACHER_EXACT_RATIO}x); "
+          f"largest distances from f64: card f32 {max(r['card_exact'] for r in rows.values()):.2e}, CPU f32 "
+          f"{max(r['cpu_exact'] for r in rows.values()):.2e}, card bf16 {max(r['bf16_exact'] for r in rows.values()):.2e}")
+    for name, i in checked.items():
+        if not (rows[i]["card_cpu"] <= TEACHER_F32_ATOL[name] and rows[i]["card_exact"] <= TEACHER_EXACT_ATOL[name]):
+            raise AssertionError(f"mode_07 f32 card: {name} {rows[i]} over {TEACHER_F32_ATOL[name]}, {TEACHER_EXACT_ATOL[name]}")
+    if ratio_over(rows) or not psnr > TEACHER_F32_MIN_PSNR:
+        raise AssertionError(f"mode_07 f32 card: further from f64 than the CPU f32 {ratio_over(rows)}, or PSNR {psnr} dB")
+
+    # The two U-Nets alone, each on the CPU f32 run's own inputs.
+    rotation = poses.cpu()[:, NUM_EYEBROW_PARAMS + NUM_FACE_PARAMS :]
+    half = resize_bilinear(plain[mode_07.INDEX_FACE_MORPHED_FULL], (256, 256))
+    coarse = [resize_bilinear(plain[6 + i], (512, 512)) for i in (body_morpher.INDEX_MERGED, body_morpher.INDEX_GRID_CHANGE)]
+    inputs = {"body_morpher": (half, rotation), "upscaler": (plain[mode_07.INDEX_FACE_MORPHED_FULL], *coarse, rotation)}
+    net_rows = {}
+    for name, args in inputs.items():
+        with torch.no_grad():
+            on_card = getattr(card_teacher, name)(*(t.cuda() for t in args))
+            on_cpu = getattr(cpu_teacher, name)(*args)
+            on_exact = getattr(exact_teacher, name)(*(t.double() for t in args))
+            on_bf16 = getattr(bf16_teacher, name)(*(t.to("cuda", torch.bfloat16) for t in args))
+        net_rows[name] = {k: gaps(a.cpu(), b, e, h.cpu()) for k, a, b, e, h in zip(UNET_OUTPUT_NAMES, on_card, on_cpu, on_exact, on_bf16)}
+        print(f"mode_07 B=1 {name} alone on the same inputs, card f32 vs CPU f32 | card f32 vs f64 | CPU f32 vs f64 | "
+              f"card bf16 vs f64: " + "; ".join(f"{k} {r['card_cpu']:.2e} | {r['card_exact']:.2e} | {r['cpu_exact']:.2e} | "
+                                                f"{r['bf16_exact']:.2e}" for k, r in net_rows[name].items()))
+    held = [("body_morpher", k) for k in UNET_OUTPUT_NAMES] + [("upscaler", "alpha"), ("upscaler", "grid_change")]
+    over = [(net, k, net_rows[net][k]["card_cpu"]) for net, k in held if not net_rows[net][k]["card_cpu"] <= UNET_F32_ATOL]
+    over += [(net, k, r["card_exact"]) for net in net_rows for k, r in net_rows[net].items() if not r["card_exact"] <= UNET_EXACT_ATOL]
+    print(f"mode_07 B=1 U-Nets alone: card f32 vs f64 at most {max(r['card_exact'] for v in net_rows.values() for r in v.values()):.2e} "
+          f"(bar {UNET_EXACT_ATOL:.0e}), card bf16 vs f64 at least {min(r['bf16_exact'] for v in net_rows.values() for r in v.values()):.2e}")
+    if over or ratio_over(net_rows["body_morpher"]) or ratio_over(net_rows["upscaler"]):
+        raise AssertionError(f"mode_07 f32 U-Nets over their bars: {over}; further from f64 than the CPU f32: "
+                             f"{ratio_over(net_rows['body_morpher'])} {ratio_over(net_rows['upscaler'])}")
+    # The bars have teeth: bf16 fails each of them.
+    passed16 = [name for name, i in checked.items() if rows[i]["bf16_exact"] <= TEACHER_EXACT_ATOL[name]]
+    passed16 += [(net, k) for net in net_rows for k, r in net_rows[net].items() if r["bf16_exact"] <= UNET_EXACT_ATOL]
+    if passed16:
+        raise AssertionError(f"mode_07: the bf16 teacher passes the f32 bars against f64 at {passed16}")
+    results.update(rows={name: rows[i] for name, i in checked.items()}, psnr=psnr, net_rows=net_rows)
+    return results
+
+
+def _timed_body_steps(torch, recipes, student, teacher, image, dtype, mixed, pipelined: bool, iters: int = 10, warmup: int = 2) -> dict:
+    """As ``_timed_steps``, for the body student: teacher labels, student
+    forward + backward, Adam, at the default phase-3 weights."""
+    from tha4_tpu_torch.distiller.pose_dataset import sample_poses
+
+    student = copy.deepcopy(student)
+    optimizer = recipes.make_adam(student)
+    weights = recipes.default_body_phases().loss_weights(recipes.BODY_LOSS_TERMS, 500_000)
+    batches = [sample_poses(torch.Generator().manual_seed(SEED + 200 + i), TRAIN_BATCH).cuda() for i in range(warmup + iters)]
+    events = []
+    for i, poses in enumerate(batches):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        targets = recipes.body_teacher_targets(teacher, image, poses, dtype)
+        ev[1].record()
+        optimizer.zero_grad(set_to_none=True)
+        total, _ = recipes.body_loss(student, targets, poses, weights, dtype, mixed)
+        total.backward()
+        ev[2].record()
+        for group in optimizer.param_groups:
+            group["lr"] = 1e-5
+        optimizer.step()
+        ev[3].record()
+        if not pipelined:
+            ev[3].synchronize()
+        events.append(ev)
+    torch.cuda.synchronize()
+    out = {"step_ms": (time.perf_counter() - t0) * 1000.0 / iters}
+    for j, key in enumerate(["teacher_ms", "student_ms", "adam_ms"]):
+        out[key] = statistics.median(ev[j].elapsed_time(ev[j + 1]) for ev in events[warmup:])
+    return out
+
+
+def _body_gradient_check(torch, student, teacher32, image) -> dict:
+    """The body student's f32 gradients on the card against the plain
+    backward on the CPU, at B = 2, same labels (the card's f32 teacher) and
+    poses, split at the head output: a bilinear sample's gradient jumps
+    where its point crosses a texel edge, and a head output 1e-6 away on
+    the CPU puts some points in another cell.  So the trunk (GEMMs,
+    resizes, poly_sin kernels) is held on the card's head cotangent, and
+    the head, K3 and the loss on the card's head output.  End to end, each
+    device from its own head output, the gradients are held once the loss
+    terms of the pixels where the loss is not smooth between the two
+    devices' head outputs are dropped: the sample point lies in another
+    texel, or an L1 term's prediction on the other side of its label.
+    Every term of the body loss is per pixel, so that is their head
+    cotangent zeroed."""
+    from tha4_tpu_torch.distiller import recipes
+    from tha4_tpu_torch.distiller.pose_dataset import sample_poses
+    from tha4_tpu_torch.models import siren
+    from tha4_tpu_torch.ops import warp
+
+    poses = sample_poses(torch.Generator().manual_seed(SEED + 30), 2).cuda()
+    weights = recipes.default_body_phases().loss_weights(recipes.BODY_LOSS_TERMS, 500_000)
+    targets = recipes.body_teacher_targets(teacher32, image, poses, torch.float32)
+    cpu_targets = [t.cpu() for t in targets]
+
+    def scaled_err(grads, refs):
+        return max(float((grads[k].cpu() - r.cpu()).abs().max()) / max(float(r.abs().max()), 1e-12) for k, r in refs.items())
+
+    def head_cotangent(head, labels):
+        leaf = head.detach().requires_grad_()
+        recipes.body_loss_terms(siren.morpher_head(leaf, labels[3]), labels, weights)[0].backward()
+        return leaf.grad
+
+    def trunk_grads(module, head, cot):
+        params = dict(module.named_parameters())
+        return dict(zip(params, torch.autograd.grad(head, list(params.values()), cot, retain_graph=True)))
+
+    def cells(h):
+        # The source texel each output pixel samples, from the head's grid change.
+        size = h.shape[1]
+        grid = warp.identity_grid(size, size)[None] + h[..., 0:2]
+        return torch.floor(((grid + 1.0) * size - 1.0) * 0.5)
+
+    def sides(h, labels):
+        # The side of its label each L1 term's prediction lies on (recipes.body_loss_terms).
+        with torch.no_grad():
+            outs = siren.morpher_head(h, labels[3])
+        pairs = [(siren.SIREN_MORPHER_INDEX_BLENDED_IMAGE, 0), (siren.SIREN_MORPHER_INDEX_WARPED_IMAGE, 1),
+                 (siren.SIREN_MORPHER_INDEX_GRID_CHANGE, 2), (siren.SIREN_MORPHER_INDEX_COLOR_CHANGE, 0)]
+        return torch.cat([torch.sign(outs[i].float() - labels[j].float()).cpu() for i, j in pairs], dim=-1)
+
+    card, cpu_student = copy.deepcopy(student), copy.deepcopy(student).cpu()
+    head = siren.siren_morpher_train_head(card, poses, torch.float32)
+    cpu_head = siren.siren_morpher_train_head(cpu_student, poses.cpu(), torch.float32)
+    cot, cpu_cot = head_cotangent(head, targets), head_cotangent(cpu_head, cpu_targets)
+    card_grads = trunk_grads(card, head, cot)
+    trunk_err = scaled_err(card_grads, trunk_grads(cpu_student, cpu_head, cot.cpu()))
+    head_err = scaled_err({"head": cot}, {"head": head_cotangent(head.cpu(), cpu_targets)})
+    e2e_err = scaled_err(card_grads, trunk_grads(cpu_student, cpu_head, cpu_cot))
+    same_texel = (cells(head.detach().cpu()) == cells(cpu_head.detach())).all(dim=-1, keepdim=True)
+    same_side = (sides(head.detach(), targets) == sides(cpu_head.detach(), cpu_targets)).all(dim=-1, keepdim=True)
+    moved, flipped = int((~same_texel).sum()), int((same_texel & ~same_side).sum())
+    smooth = same_texel & same_side
+    masked_err = scaled_err(trunk_grads(card, head, cot * smooth.cuda()), trunk_grads(cpu_student, cpu_head, cpu_cot * smooth))
+    step_err = max(trunk_err, head_err)
+    head_rows = float(card_grads["last_linear.weight"][0:2].abs().max())
+    level_grads = [float(card_grads[f"siren_layers.{i}.0.linear.weight"].abs().max()) for i in range(len(student.siren_layers))]
+    print(f"body training: f32 student gradients at B=2, card vs CPU plain backward, same labels (bar {STEP_F32_ATOL:.0e}, scaled): "
+          f"trunk on the card's head cotangent {trunk_err:.3e}, head + K3 + loss on the card's head output {head_err:.3e}; "
+          f"end to end {e2e_err:.3e}, with {moved} of {same_texel.numel()} sample points in another texel and {flipped} more "
+          f"pixels with an L1 term on the other side of its label on the CPU, and {masked_err:.3e} with those pixels' loss terms "
+          f"dropped on both devices (bar {STEP_MASKED_ATOL:.0e}); head grid-change rows |g| max {head_rows:.3e}; first layer "
+          f"of each level |g| max " + ", ".join(f"{v:.3e}" for v in level_grads))
+    if not (step_err <= STEP_F32_ATOL and masked_err <= STEP_MASKED_ATOL):
+        raise AssertionError(f"body training: f32 card gradients {trunk_err}, {head_err} over the bar {STEP_F32_ATOL}, "
+                             f"or {masked_err} over {STEP_MASKED_ATOL}")
+    if not (head_rows > 0.0 and all(v > 0.0 for v in level_grads)):
+        raise AssertionError("body training: a zero gradient on the head's grid-change rows or on a level")
+    return {"step_err": step_err, "e2e_err": e2e_err, "masked_err": masked_err, "moved": moved, "flipped": flipped}
+
+
+def phase_body_training(torch, workdir: str, config, teacher_params) -> dict:
+    from tha4_tpu_torch.distiller import recipes
+    from tha4_tpu_torch.distiller.pipeline import DistillationJobs
+    from tha4_tpu_torch.ops import cuda_poly_sin, cuda_siren, cuda_warp
+    from tha4_tpu_torch.poser.modes import mode_07
+    from tha4_tpu_torch.training import checkpoint as ckpt
+    from tha4_tpu_torch.training.schedules import TrainingPhase, TrainingPhases
+
+    total = TRAIN_STEPS * TRAIN_BATCH
+    # The reference's six phases, their bounds scaled from 1.5M examples to
+    # this run's 256: the lr and the weights change at 34, 68, ... examples.
+    phases = TrainingPhases([
+        TrainingPhase(p.num_examples_upper_bound * total // recipes.BODY_MORPHER_TOTAL_EXAMPLES, p.learning_rate, dict(p.loss_weights))
+        for p in recipes.default_body_phases().phases
+    ])
+
+    def jobs(prefix: str) -> DistillationJobs:
+        os.makedirs(prefix, exist_ok=True)
+        return DistillationJobs(
+            dataclasses.replace(config, prefix=prefix), teacher_params_07=teacher_params, compute_dtype=torch.bfloat16,
+            device="cuda", body_total_examples=total, examples_per_checkpoint=total // 2, examples_per_snapshot=total // 4,
+        )
+
+    run = jobs(os.path.join(workdir, "run"))
+    trainer = run.make_body_trainer(phases)
+    trainer.cfg.log_every_seconds = 0.0
+    counters = [cuda_warp.grid_sample_fast, cuda_warp.grid_sample_corners, cuda_poly_sin.poly_sin_forward,
+                cuda_poly_sin.poly_sin_backward, cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd]
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"body training: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, bf16 teacher and selective-f32 student, through "
+          f"DistillationJobs.make_body_trainer(phases).train(), teacher mode_07 at full width (random): {wall:.2f} s; launches {launches}")
+    expected = {"grid_sample_fast": 5 * TRAIN_STEPS, "grid_sample_corners": TRAIN_STEPS, "poly_sin_forward": 9 * TRAIN_STEPS,
+                "poly_sin_backward": 9 * TRAIN_STEPS, "sine_chain_t": 0, "sine_chain_t_bwd": 0}
+    if launches != expected or result["examples_seen"] != total:
+        raise AssertionError(f"body training: expected {expected} launches and {total} examples, got {launches}, {result['examples_seen']}")
+
+    prefix = trainer.cfg.prefix
+    with open(os.path.join(prefix, "log", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    keys = (*recipes.BODY_LOSS_TERMS, "loss")
+    if len(rows) != TRAIN_STEPS or not all(math.isfinite(r[k]) for r in rows for k in keys):
+        raise AssertionError(f"body training: {len(rows)} log rows, or a loss that is not finite")
+    lrs = sorted({r["lr"] for r in rows}, reverse=True)
+    print(f"body training: loss {rows[0]['loss']:.5f} at step 1, {rows[-1]['loss']:.5f} at step {TRAIN_STEPS}, all finite; "
+          f"lr {lrs} across the scaled phases; last terms " + ", ".join(f"{k} {rows[-1][k]:.5f}" for k in recipes.BODY_LOSS_TERMS))
+    if len(lrs) < 3:
+        raise AssertionError(f"body training: the run crossed no phase change (lr {lrs})")
+    for d, seen in [(ckpt.checkpoint_dir(prefix, i), i * total // 2) for i in range(3)] + [(ckpt.snapshot_dir(prefix), total)]:
+        if not ckpt.can_load(d, ["module"]) or ckpt.read_examples_seen(d) != seen:
+            raise AssertionError(f"body training: {d} is not a loadable state at {seen} examples")
+
+    resumed_trainer = jobs(os.path.join(workdir, "resumed")).make_body_trainer(phases)
+    shutil.copytree(ckpt.checkpoint_dir(prefix, 1), ckpt.checkpoint_dir(resumed_trainer.cfg.prefix, 1))
+    resumed = resumed_trainer.train()
+    diffs = [float((a - b).abs().max()) for a, b in zip(result["module"].state_dict().values(), resumed["module"].state_dict().values())]
+    print(f"body training: resumed from checkpoint 1 ({total // 2} examples) to {resumed['examples_seen']}: "
+          f"params max abs diff {max(diffs):.3e} (bar {RESUME_ATOL:.0e})" + (" (bit-identical)" if max(diffs) == 0.0 else ""))
+    if resumed["examples_seen"] != total or not max(diffs) <= RESUME_ATOL:
+        raise AssertionError("body training: resume does not reproduce the uninterrupted run")
+
+    student = result["module"]
+    image = run.character_image()
+    teacher32 = mode_07.Teacher.from_params(teacher_params).freeze(torch.float32, "cuda")
+    grads = _body_gradient_check(torch, student, teacher32, image)
+
+    steps = {}
+    teacher16 = mode_07.Teacher.from_params(teacher_params).freeze(torch.bfloat16, "cuda")
+    for tag, dtype, teacher, mixed in [("bf16_mixed", torch.bfloat16, teacher16, True), ("f32", torch.float32, teacher32, False)]:
+        for mode, pipelined in [("synchronized", False), ("pipelined", True)]:
+            t = steps[f"{tag}_{mode}"] = _timed_body_steps(torch, recipes, student, teacher, image, dtype, mixed, pipelined)
+            print(f"body training step {tag} at B={TRAIN_BATCH}, {mode}: {t['step_ms']:.3f} ms/step host clock over 10 steps "
+                  f"({TRAIN_BATCH * 1000.0 / t['step_ms']:.1f} examples/s); CUDA-event medians: teacher {t['teacher_ms']:.3f} ms, "
+                  f"student fwd+bwd {t['student_ms']:.3f} ms, Adam {t['adam_ms']:.3f} ms")
+    return {"launches": launches, "steps": steps, **grads, "resume_diff": max(diffs), "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -562,7 +1149,21 @@ def main() -> int:
         k4 = phase_k4(torch, face, body)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         training = phase_training(torch, workdir)
+    k3 = phase_k3(torch)
+    with torch.inference_mode():
+        k5 = phase_poly_sin(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_body_") as workdir:
+        from tha4_tpu_torch.charmodel.synthetic import random_teacher_07, write_distiller_inputs
+        from tha4_tpu_torch.core import imagecodec
+        from tha4_tpu_torch.distiller.config import DistillerConfig
 
+        config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, "distill"), seed=SEED, batch_size=TRAIN_BATCH))
+        teacher_params = random_teacher_07(torch.Generator().manual_seed(SEED + 8))
+        image = torch.from_numpy(imagecodec.load_image_hwc(config.character_image_file_name))[None].cuda()
+        body_teacher = phase_body_teacher(torch, teacher_params, image)
+        body = phase_body_training(torch, workdir, config, teacher_params)
+
+    k5_mixed = k5["f32->bf16"]
     kernels = {
         "kernels": [
             {
@@ -570,7 +1171,9 @@ def main() -> int:
                 "replaces": "tha4_tpu/ops/pallas_siren.py:196",
                 "launches": main_path["launches"]["sine_chain_t"],
                 "max_abs_err": k1["f32_err"], "ms": k1["ms"]["bf16"], "plain_ms": k1["plain_ms"]["bf16"],
+                **k1["bound"]["bf16"], "library_ms": None,
                 "max_abs_err_bf16": k1["bf16_err"], "ms_f32": k1["ms"]["f32"], "plain_ms_f32": k1["plain_ms"]["f32"],
+                "bound_ms_f32": k1["bound"]["f32"]["bound_ms"],
                 "timed": "sum of the four calls of one frame (face, L0, L1, L2), bf16; *_f32 in f32",
                 "launches_training": training["launches"]["sine_chain_t"],
             },
@@ -579,21 +1182,60 @@ def main() -> int:
                 "replaces": "tha4_tpu/ops/pallas_warp.py:216",
                 "launches": main_path["launches"]["grid_sample_fast"],
                 "max_abs_err": k2["f32_err"], "ms": k2["ms"]["bf16"], "plain_ms": k2["plain_ms"]["bf16"],
+                **k2["bound"]["bf16"], "library_ms": k2["library_ms"]["bf16"],
                 "max_abs_err_bf16": k2["bf16_err"], "ms_f32": k2["ms"]["f32"], "plain_ms_f32": k2["plain_ms"]["f32"],
-                "timed": "one 512^2x4 warp, smooth grid, bf16 image; *_f32 with an f32 image",
+                "bound_ms_f32": k2["bound"]["f32"]["bound_ms"], "library_ms_f32": k2["library_ms"]["f32"],
+                "timed": "one 512^2x4 warp, smooth grid, bf16 image; *_f32 with an f32 image; library: F.grid_sample "
+                         "(bilinear, border, align_corners=False), grid cast to the image dtype",
                 "launches_training": training["launches"]["grid_sample_fast"],
+                "launches_body_training": body["launches"]["grid_sample_fast"],
             },
             {
                 "name": "sine_chain_t_bwd", "route": "cuda", "source": "tha4_tpu_torch/csrc/sine_chain_bwd.cu",
                 "replaces": "tha4_tpu/ops/pallas_siren.py:433",
                 "launches": training["launches"]["sine_chain_t_bwd"],
                 "max_abs_err": k4["f32_abs_err"], "ms": k4["ms"]["bf16"], "plain_ms": k4["plain_ms"]["bf16"],
+                **k4["bound"]["bf16"], "library_ms": None,
                 "max_scaled_err": k4["f32_err"], "max_scaled_err_bf16": k4["bf16_err"],
-                "ms_f32": k4["ms"]["f32"], "plain_ms_f32": k4["plain_ms"]["f32"],
+                "ms_f32": k4["ms"]["f32"], "plain_ms_f32": k4["plain_ms"]["f32"], "bound_ms_f32": k4["bound"]["f32"]["bound_ms"],
                 "timed": "one face-student backward, N=8, 128^2, 41->128x8->4, bf16; *_f32 in f32; launches from the training run",
             },
+            {
+                "name": "grid_sample_corners", "route": "cuda", "source": "tha4_tpu_torch/csrc/warp.cu",
+                "replaces": "tha4_tpu/ops/pallas_warp.py:239",
+                "launches": body["launches"]["grid_sample_corners"],
+                "max_abs_err": k3["f32_err"], "ms": k3["ms"]["bf16"], "plain_ms": k3["plain_ms"]["bf16"],
+                **k3["bound"]["bf16"], "library_ms": k3["library_ms"]["bf16"],
+                "max_abs_err_bf16": k3["bf16_err"], "max_scaled_err_dgrid": k3["dgrid_err"],
+                "fwd_bwd_ms": k3["fwd_bwd_ms"]["bf16"], "ms_f32": k3["ms"]["f32"], "plain_ms_f32": k3["plain_ms"]["f32"],
+                "bound_ms_f32": k3["bound"]["f32"]["bound_ms"], "fwd_bwd_ms_f32": k3["fwd_bwd_ms"]["f32"],
+                "library_ms_f32": k3["library_ms"]["f32"],
+                "timed": "the head warp's forward with dx/dy, N=8, 512^2x4, smooth grid, bf16 image; fwd_bwd adds the elementwise "
+                         "grid backward; library: F.grid_sample forward + grid backward (compare with fwd_bwd_ms), grid in the "
+                         "image dtype; launches from the body training run",
+            },
+            {
+                "name": "poly_sin_forward", "route": "cuda", "source": "tha4_tpu_torch/csrc/poly_sin.cu",
+                "replaces": "tha4_tpu/ops/pallas_siren.py:84",
+                "launches": body["launches"]["poly_sin_forward"],
+                "max_abs_err": k5_mixed["errs"][0], "ms": k5_mixed["fwd"], "plain_ms": k5_mixed["plain_fwd"],
+                **k5_mixed["bound"]["fwd"], "library_ms": k5_mixed["torch_sin"],
+                "ms_f32": k5["f32"]["fwd"], "plain_ms_f32": k5["f32"]["plain_fwd"], "ms_bf16": k5["bf16"]["fwd"],
+                "timed": "(8, 512^2, 90) f32 pre-activation -> bf16 (the selective-f32 path); library: torch.sin, f32 -> f32; "
+                         "launches from the body training run",
+            },
+            {
+                "name": "poly_sin_backward", "route": "cuda", "source": "tha4_tpu_torch/csrc/poly_sin.cu",
+                "replaces": "tha4_tpu/ops/pallas_siren.py:110",
+                "launches": body["launches"]["poly_sin_backward"],
+                "max_abs_err": k5_mixed["errs"][1], "ms": k5_mixed["bwd"], "plain_ms": k5_mixed["plain_bwd"],
+                **k5_mixed["bound"]["bwd"], "library_ms": None,
+                "ms_f32": k5["f32"]["bwd"], "plain_ms_f32": k5["f32"]["plain_bwd"], "ms_bf16": k5["bf16"]["bwd"],
+                "timed": "(8, 512^2, 90) f32 a, bf16 g -> f32 da; launches from the body training run",
+            },
         ],
-        "frame_ms": main_path["ms"], "train_step_ms": training["steps"], "build_s": build_s, "card": card,
+        "frame_ms": main_path["ms"], "train_step_ms": training["steps"], "body_teacher_ms": body_teacher["ms"],
+        "body_train_step_ms": body["steps"], "build_s": build_s, "card": card,
     }
     print(json.dumps(kernels))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

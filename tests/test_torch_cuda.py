@@ -146,3 +146,76 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
             None, torch.zeros((2, 64), device=card, dtype=torch.bfloat16), torch.zeros((1, 45), device=card), wide,
             torch.zeros((1, 180, 64), device=card, dtype=torch.bfloat16),
         )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_corners_kernel_and_grid_gradient_match_plain(card, dtype):
+    """K3: out, dx and dy against the plain version (f32 lerps in the same
+    order: out equals K2's, dx / dy to f32 rounding), and dgrid through the
+    autograd Function within 2e-5 of its largest (tests/test_pallas_warp.py:44-60)."""
+    rng = np.random.default_rng(8)
+    image = torch.from_numpy(rng.uniform(-1, 1, (2, 96, 160, 4)).astype(np.float32)).to(card, dtype)
+    grid = torch.from_numpy(rng.uniform(-1.2, 1.2, (2, 96, 160, 2)).astype(np.float32)).to(card)
+    before = cuda_warp.grid_sample_corners.launches
+    out, dx, dy = cuda_warp.grid_sample_corners(image, grid)
+    torch.cuda.synchronize()
+    assert cuda_warp.grid_sample_corners.launches == before + 1
+    ref = cuda_warp.grid_sample_corners_plain(image, grid)
+    assert out.dtype == dtype and dx.dtype == dy.dtype == torch.float32
+    assert torch.equal(out, cuda_warp.grid_sample_fast(image, grid))
+    for a, r in zip((out, dx, dy), ref):
+        assert float((a.float() - r.float()).abs().max()) <= (1e-5 if a.dtype == torch.float32 else 2.0**-7)
+    g = torch.from_numpy(rng.standard_normal((2, 96, 160, 4)).astype(np.float32)).to(card, dtype)
+    grads = []
+    for device in (card, "cpu"):
+        gr = grid.detach().to(device).requires_grad_()
+        (cuda_warp.grid_sample_train(image.to(device), gr).float() * g.to(device).float()).sum().backward()
+        grads.append(gr.grad.cpu())
+    scale = float(grads[1].abs().max())
+    assert float((grads[0] - grads[1]).abs().max()) <= 2e-5 * scale
+
+
+def test_bare_warp_refuses_a_cuda_grad_grid(card):
+    image = torch.zeros((1, 16, 16, 4), device=card)
+    grid = torch.zeros((1, 16, 16, 2), device=card, requires_grad=True)
+    before = cuda_warp.grid_sample_fast.launches
+    with pytest.raises(RuntimeError, match="grid_sample_train"):
+        cuda_warp.grid_sample_fast(image, grid)
+    assert cuda_warp.grid_sample_fast.launches == before
+
+
+@pytest.mark.parametrize("a_dtype,out_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+def test_poly_sin_kernels_match_plain(card, a_dtype, out_dtype):
+    """K5 forward and backward, bit-equal to the plain versions (the same
+    f32 operations with no contraction), a length with a ragged tail."""
+    from tha4_tpu_torch.ops import cuda_poly_sin
+
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy((rng.standard_normal((3, 1001)) * 40.0).astype(np.float32)).to(card, a_dtype)
+    g = torch.from_numpy(rng.standard_normal((3, 1001)).astype(np.float32)).to(card, out_dtype)
+    before = (cuda_poly_sin.poly_sin_forward.launches, cuda_poly_sin.poly_sin_backward.launches)
+    out = cuda_poly_sin.poly_sin_forward(a, out_dtype)
+    da = cuda_poly_sin.poly_sin_backward(a, g)
+    torch.cuda.synchronize()
+    assert (cuda_poly_sin.poly_sin_forward.launches, cuda_poly_sin.poly_sin_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == out_dtype and da.dtype == a_dtype
+    assert torch.equal(out, cuda_poly_sin.poly_sin_plain(a, out_dtype))
+    assert torch.equal(da, cuda_poly_sin.poly_sin_bwd_plain(a, g))
+
+
+def test_body_student_step_launches_poly_sin_and_k3(card):
+    """The body student's training forward and backward on the card: one
+    K3 and no K2, 9 poly_sin launches each way, no K1 or K4."""
+    from tha4_tpu_torch.ops import cuda_poly_sin
+
+    student = siren.SirenMorpher(generator=torch.Generator().manual_seed(3)).to(card)
+    image = torch.rand((1, 512, 512, 4), device=card, dtype=torch.bfloat16) * 2 - 1
+    pose = torch.rand((1, 45), device=card)
+    counters = [cuda_poly_sin.poly_sin_forward, cuda_poly_sin.poly_sin_backward, cuda_warp.grid_sample_corners,
+                cuda_warp.grid_sample_fast, cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd]
+    before = [c.launches for c in counters]
+    outs = siren.siren_morpher_train_apply(student, image, pose, torch.bfloat16, mixed=True)
+    sum(o.float().mean() for o in outs).backward()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [9, 9, 1, 0, 0, 0]
+    assert student.last_linear.weight.grad[0:2].abs().max() > 0

@@ -1,7 +1,9 @@
 """Seeded synthetic inputs, for runs without trained weights or shipped art.
 
 ``write_distiller_inputs`` writes a synthetic character, an eye-mouth mask
-and a ``DistillerConfig`` yaml, from which the face student trains.
+and a ``DistillerConfig`` yaml, from which the students train;
+``random_teacher_07`` draws a random mode_07 teacher whose zero-init layers
+are brought to life (below).
 ``write_random_character_model`` writes the three parts of a character model
 (the two student ``.pt`` state dicts, from the port's own init, and a
 synthetic 512^2 RGBA character) plus the yaml that ties them together, so
@@ -15,6 +17,15 @@ a trained student's stay within about 36 px at 512^2
 (``tha4_tpu/ops/pallas_warp.py:67``).  At the init's size the bf16 storage
 of the flow alone (one bf16 step, about 1 px) dominates a bf16 frame's
 error; scaled, the flows are a trained student's size.
+
+A random mode_07 teacher has the same trouble the other way round: every
+U-Net's ResBlock ``conv1``, attention projection and last conv, the
+upscaler's ``coarse_image_conv`` and the two grid-change heads start at zero
+(``tha4_tpu/models/unet.py:98-101, 640-641``), so its residual branches are
+dead and its flows exactly zero.  ``random_teacher_07`` gives those layers
+small seeded weights (the precedent of ``tests/test_teacher_nets.py:276-279``):
+the residual branches a tenth of the default init, and the grid-change
+outputs flows of a few pixels, as a trained teacher's.
 """
 
 from __future__ import annotations
@@ -29,6 +40,12 @@ from tha4_tpu_torch.convert.export_torch import save_module_pt
 from tha4_tpu_torch.models import siren
 
 FLOW_SCALE = 0.125
+# random_teacher_07: the zero-init residual convs at this fraction of
+# torch's default U(+-1/sqrt(fan_in)) init; the U-Nets' last convs and the
+# grid-change heads N(0, std), the grid-change rows at TEACHER_FLOW_STD.
+TEACHER_RESIDUAL_SCALE = 0.1
+TEACHER_HEAD_STD = 0.02
+TEACHER_FLOW_STD = 5e-4
 
 
 def synthetic_character_image(size: int = 512, seed: int = 0) -> np.ndarray:
@@ -71,6 +88,39 @@ def synthetic_face_mask(size: int = 512, seed: int = 0) -> np.ndarray:
     return mask
 
 
+@torch.no_grad()
+def random_teacher_07(gen: torch.Generator, cfg=None):
+    """Seeded random mode_07 teacher params (at ``cfg``'s widths, the
+    shipped ones by default) with its zero-init layers made small and
+    nonzero; see the module docstring."""
+    from tha4_tpu_torch.models import unet
+    from tha4_tpu_torch.poser.modes import mode_07
+
+    teacher = mode_07.Teacher.from_params(mode_07.init(gen, cfg), cfg)
+
+    def residual(conv):
+        bound = TEACHER_RESIDUAL_SCALE / float(np.sqrt(conv.weight[0].numel()))
+        conv.weight.uniform_(-bound, bound, generator=gen)
+        conv.bias.uniform_(-bound, bound, generator=gen)
+
+    for net in (teacher.body_morpher.body, teacher.upscaler.body):
+        for m in net.modules():
+            if isinstance(m, unet.ResBlock):
+                residual(m.conv1)
+            elif isinstance(m, unet.AttentionBlock):
+                residual(m.conv)
+        last = net.last[2]
+        last.weight.normal_(0.0, TEACHER_HEAD_STD, generator=gen)
+        last.bias.normal_(0.0, TEACHER_HEAD_STD, generator=gen)
+        c = teacher.cfg.body_morpher.image_channels
+        last.weight[c : c + 2].normal_(0.0, TEACHER_FLOW_STD, generator=gen)
+        last.bias[c : c + 2].zero_()
+    residual(teacher.upscaler.coarse_image_conv)
+    for conv in (teacher.eyebrow_morphing_combiner.morphed_eyebrow_layer_grid_change, teacher.face_morpher.iris_mouth_grid_change):
+        conv.weight.normal_(0.0, TEACHER_FLOW_STD, generator=gen)
+    return teacher.params()
+
+
 def write_distiller_inputs(directory: str, seed: int = 0, batch_size: int = 8) -> str:
     """Write ``character.png``, ``face_mask.png`` and ``config.yaml`` (a
     ``DistillerConfig`` with its prefix under ``directory/job`` and sample
@@ -90,6 +140,7 @@ def write_distiller_inputs(directory: str, seed: int = 0, batch_size: int = 8) -
         face_morpher_num_training_examples_per_sample_output=None,
         body_morpher_num_training_examples_per_sample_output=None,
         face_morpher_batch_size=batch_size,
+        body_morpher_batch_size=batch_size,
     )
     path = os.path.join(directory, "config.yaml")
     config.save(path)

@@ -116,6 +116,73 @@ def face_teacher_state_dicts(params: Dict) -> Dict[str, Dict[str, torch.Tensor]]
     }
 
 
+def _linear(sd: Dict, prefix: str, p: Dict) -> None:
+    sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(p["w"], np.float32).T))
+    sd[prefix + ".bias"] = _vec(p["b"])
+
+
+def _unet_resblock(sd: Dict, prefix: str, p: Dict) -> None:
+    _norm(sd, prefix + ".norm0", p["norm0"])
+    _conv(sd, prefix + ".conv0", p["conv0"])
+    _linear(sd, prefix + ".cond0_layers.1", p["cond0"])
+    _norm(sd, prefix + ".norm1", p["norm1"])
+    _conv(sd, prefix + ".conv1", p["conv1"])
+    _linear(sd, prefix + ".cond1_layers.1", p["cond1"])
+    if "skip" in p:
+        _conv(sd, prefix + ".skip", p["skip"])
+
+
+def _attention_block(sd: Dict, prefix: str, p: Dict) -> None:
+    _norm(sd, prefix + ".norm", p["norm"])
+    _conv(sd, prefix + ".qkv", p["qkv"])
+    _conv(sd, prefix + ".conv", p["proj"])
+
+
+def unet_state_dict(p: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``models.unet`` params -> the port's ``models.unet.Unet`` keys
+    (the reference's), under ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, prefix + "time_embed.1", p["time_embed"][0])
+    _linear(sd, prefix + "time_embed.3", p["time_embed"][1])
+    _linear(sd, prefix + "cond_embed.0", p["cond_embed"][0])
+    _linear(sd, prefix + "cond_embed.2", p["cond_embed"][1])
+    _conv(sd, prefix + "first_conv", p["first_conv"])
+    for i, blk in enumerate(p["down_blocks"]):
+        for j, rb in enumerate(blk["res_blocks"]):
+            _unet_resblock(sd, f"{prefix}down_blocks.{i}.res_blocks.{j}", rb)
+        for j, ab in enumerate(blk.get("attention_blocks", [])):
+            _attention_block(sd, f"{prefix}down_blocks.{i}.attention_blocks.{j}", ab)
+        if "downsample" in blk:
+            _unet_resblock(sd, f"{prefix}down_blocks.{i}.downsample", blk["downsample"])
+    for i, blk in enumerate(p["middle_blocks"]):
+        if "res" in blk:
+            _unet_resblock(sd, f"{prefix}middle_blocks.{i}", blk["res"])
+        else:
+            _attention_block(sd, f"{prefix}middle_blocks.{i}.module", blk["attn"])
+    for k, blk in enumerate(p["up_blocks"]):
+        for j, rb in enumerate(blk["res_blocks"]):
+            _unet_resblock(sd, f"{prefix}up_blocks.{k}.resnet_blocks.{j}", rb)
+        for j, ab in enumerate(blk.get("attention_blocks", [])):
+            _attention_block(sd, f"{prefix}up_blocks.{k}.attention_blocks.{j}", ab)
+        if "upsample" in blk:
+            _unet_resblock(sd, f"{prefix}up_blocks.{k}.upsample", blk["upsample"])
+    _norm(sd, prefix + "last.0", p["last_norm"])
+    _conv(sd, prefix + "last.2", p["last_conv"])
+    return sd
+
+
+def teacher_07_state_dicts(params: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's mode_07 params (numpy arrays) -> the five state
+    dicts of ``poser.modes.mode_07``, keyed by network name."""
+    upscaler = unet_state_dict(params["upscaler"]["body"], "body.")
+    _conv(upscaler, "coarse_image_conv", params["upscaler"]["coarse_image_conv"])
+    return {
+        **face_teacher_state_dicts(params),
+        "body_morpher": unet_state_dict(params["body_morpher"]["body"], "body."),
+        "upscaler": upscaler,
+    }
+
+
 def save_module_pt(module: nn.Module, file_name: str) -> None:
     """Write a student module's state dict in the reference ``.pt`` format."""
     torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, file_name)

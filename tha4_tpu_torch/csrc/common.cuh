@@ -48,4 +48,11 @@ __device__ __forceinline__ float fast_sin(float x) {
   return __fmul_rn(r, p);
 }
 
+// cos(x) = fast_sin(x + pi/2): the backward's stand-in for the polynomial's
+// own derivative (tha4_tpu/ops/pallas_siren.py _fast_cos); they differ by
+// ~1e-6, the polynomial's fit error.
+__device__ __forceinline__ float fast_cos(float x) {
+  return fast_sin(__fadd_rn(x, 1.57079632679489661923f));
+}
+
 }  // namespace tha4

@@ -68,10 +68,6 @@ struct BwdSpec {
   int s_off[kMaxLayers];  // first stash row of each sine layer
 };
 
-__device__ __forceinline__ float fast_cos(float x) {
-  return tha4::fast_sin(__fadd_rn(x, 1.57079632679489661923f));
-}
-
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return tha4::to_f32<T>(tha4::from_f32<T>(x));
@@ -206,7 +202,7 @@ sine_chain_bwd_kernel(const T* __restrict__ prev, const T* __restrict__ pos,
       float* ga = sine ? stash + spec.s_off[l] * kStride : gc;
       for (int o = warp; o < co; o += kWarps) {
         float v = gc[o * kStride + lane];
-        if (sine) v = __fmul_rn(v, __fmul_rn(omega, fast_cos(__fmul_rn(omega, ga[o * kStride + lane]))));
+        if (sine) v = __fmul_rn(v, __fmul_rn(omega, tha4::fast_cos(__fmul_rn(omega, ga[o * kStride + lane]))));
         const float s = warp_sum(v);
         if (lane == 0) db[spec.b_off[l] + o] += s;
         ga[o * kStride + lane] = round_to<T>(v);

@@ -1,28 +1,37 @@
-// K2: bilinear grid sample with border padding, NHWC, 4 channels.
+// K2 and K3: bilinear grid sample with border padding, NHWC, 4 channels.
 //
-// Replaces tha4_tpu/ops/pallas_warp.py:grid_sample_fast (primal kernel
-// _forward_impl / _fwd_kernel).  Semantics are torch grid_sample(mode=
-// 'bilinear', padding_mode='border', align_corners=False), in the operation
-// order of tha4_tpu/ops/warp.py:grid_sample_bilinear_border:
+// K2 replaces tha4_tpu/ops/pallas_warp.py:grid_sample_fast (primal kernel
+// _forward_impl / _fwd_kernel); K3 replaces its differentiable forward
+// (_forward_corners_impl / _fwd_corners_kernel), which also writes the
+// analytic dOut/d(ix) and dOut/d(iy) per channel so that the grid's
+// gradient is elementwise (tha4_tpu_torch/ops/cuda_warp.py).  Semantics are
+// torch grid_sample(mode='bilinear', padding_mode='border',
+// align_corners=False), in the operation order of
+// tha4_tpu/ops/warp.py:grid_sample_bilinear_border:
 //   ix = clamp(((gx + 1) * W - 1) * 0.5, 0, W - 1), floor, corners clamped
 //   to W - 1 / H - 1, lerp along x then y in f32, store in the image dtype.
-// The _rn intrinsics keep nvcc from fusing those steps into FMAs, so the
-// kernel rounds exactly where the plain PyTorch version rounds.
+// K3 keeps _fwd_corners_kernel's f32 order: top_dx = v01 - v00, bot_dx =
+// v11 - v10, top = v00 + top_dx * tx, bot = v10 + bot_dx * tx, then out =
+// top + (bot - top) * ty, dx = top_dx + (bot_dx - top_dx) * ty, dy = bot -
+// top; out is bit-identical to K2's.  The _rn intrinsics keep nvcc from
+// fusing those steps into FMAs, so the kernels round exactly where the plain
+// PyTorch versions round.
 //
-// This warp is EXACT.  The TPU kernel is not: it gathers through one-hot
-// matmuls over a VMEM window, so displacements beyond about 60 rows / 63
-// columns clamp to the window edge, and its lerp weights are truncated to
-// bf16 by the single-pass MXU dot.  A GPU reads any texel directly, so
-// neither limit exists here.
+// These warps are EXACT.  The TPU kernels are not: they gather through
+// one-hot matmuls over a VMEM window, so displacements beyond about 60 rows
+// / 63 columns (52 for K3's taller-window variant) clamp to the window edge,
+// and K2's lerp weights are truncated to bf16 by the single-pass MXU dot.  A
+// GPU reads any texel directly, so neither limit exists here.
 //
-// What bounds it on an H100: memory.  A 512^2 frame reads the 2 MB (bf16) or
-// 4 MB (f32) image, which stays in the 50 MB L2 across the four corner
-// gathers, plus 2 MB of grid, and writes one image.  Design: one thread per
-// output pixel; each corner texel is one 16-byte (f32) or 8-byte (bf16)
-// load, and the output one store of the same width.  At 512^2 that is 1024
-// blocks, too few to reach the card's bandwidth: measured 0.024 ms a call on
-// an H100 SXM 80 GB at a 700 W power limit, mostly launch and gather
-// latency, against 0.87-0.96 ms for the plain PyTorch version.
+// What bounds them on an H100: memory.  A 512^2 frame reads the 2 MB (bf16)
+// or 4 MB (f32) image, which stays in the 50 MB L2 across the four corner
+// gathers, plus 2 MB of grid, and writes one image; K3 also writes 8 MB of
+// f32 dx and dy.  Design: one thread per output pixel; each corner texel is
+// one 16-byte (f32) or 8-byte (bf16) load, and each output one store of the
+// same width.  K2 at 512^2 is 1024 blocks, too few to reach the card's
+// bandwidth: measured 0.024 ms a call on an H100 SXM 80 GB at a 700 W power
+// limit, mostly launch and gather latency, against 0.87-0.96 ms for the
+// plain PyTorch version.
 
 #include "common.cuh"
 
@@ -68,6 +77,32 @@ __device__ __forceinline__ float source_coord(float g, int size) {
   return fminf(fmaxf(x, 0.0f), static_cast<float>(size - 1));
 }
 
+// One output pixel's sample point: the offset of its batch element's image,
+// the four corners' texel offsets inside that image and the lerp weights.
+struct Sample {
+  size_t image;
+  size_t c00, c01, c10, c11;
+  float tx, ty;
+};
+
+__device__ __forceinline__ Sample sample_at(const float2* __restrict__ grid, long long i, int h,
+                                            int w, long long per_image) {
+  const int b = static_cast<int>(i / per_image);
+  const float2 g = __ldg(grid + i);
+  const float ix = source_coord(g.x, w);
+  const float iy = source_coord(g.y, h);
+  const float fx0 = floorf(ix);
+  const float fy0 = floorf(iy);
+  const int x0 = static_cast<int>(fx0);
+  const int y0 = static_cast<int>(fy0);
+  const int x1 = min(x0 + 1, w - 1);
+  const int y1 = min(y0 + 1, h - 1);
+  return Sample{static_cast<size_t>(b) * h * w * 4,
+                (static_cast<size_t>(y0) * w + x0) * 4, (static_cast<size_t>(y0) * w + x1) * 4,
+                (static_cast<size_t>(y1) * w + x0) * 4, (static_cast<size_t>(y1) * w + x1) * 4,
+                __fsub_rn(ix, fx0), __fsub_rn(iy, fy0)};
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256)
 grid_sample_kernel(const T* __restrict__ image, const float2* __restrict__ grid,
@@ -75,33 +110,53 @@ grid_sample_kernel(const T* __restrict__ image, const float2* __restrict__ grid,
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long per_image = static_cast<long long>(ho) * wo;
   if (i >= per_image * n) return;
-  const int b = static_cast<int>(i / per_image);
-
-  const float2 g = __ldg(grid + i);
-  const float ix = source_coord(g.x, w);
-  const float iy = source_coord(g.y, h);
-  const float fx0 = floorf(ix);
-  const float fy0 = floorf(iy);
-  const float tx = __fsub_rn(ix, fx0);
-  const float ty = __fsub_rn(iy, fy0);
-  const int x0 = static_cast<int>(fx0);
-  const int y0 = static_cast<int>(fy0);
-  const int x1 = min(x0 + 1, w - 1);
-  const int y1 = min(y0 + 1, h - 1);
-
-  const T* img = image + static_cast<size_t>(b) * h * w * 4;
-  const Texel v00 = load_texel<T>(img + (static_cast<size_t>(y0) * w + x0) * 4);
-  const Texel v01 = load_texel<T>(img + (static_cast<size_t>(y0) * w + x1) * 4);
-  const Texel v10 = load_texel<T>(img + (static_cast<size_t>(y1) * w + x0) * 4);
-  const Texel v11 = load_texel<T>(img + (static_cast<size_t>(y1) * w + x1) * 4);
+  const Sample s = sample_at(grid, i, h, w, per_image);
+  const T* img = image + s.image;
+  const Texel v00 = load_texel<T>(img + s.c00);
+  const Texel v01 = load_texel<T>(img + s.c01);
+  const Texel v10 = load_texel<T>(img + s.c10);
+  const Texel v11 = load_texel<T>(img + s.c11);
   Texel o;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const float top = lerp_rn(v00.c[c], v01.c[c], tx);
-    const float bottom = lerp_rn(v10.c[c], v11.c[c], tx);
-    o.c[c] = lerp_rn(top, bottom, ty);
+    const float top = lerp_rn(v00.c[c], v01.c[c], s.tx);
+    const float bottom = lerp_rn(v10.c[c], v11.c[c], s.tx);
+    o.c[c] = lerp_rn(top, bottom, s.ty);
   }
   store_texel<T>(out + i * 4, o);
+}
+
+// K3: the sample plus its derivatives along the source x and y coordinates,
+// per channel, in f32.
+template <typename T>
+__global__ void __launch_bounds__(256)
+grid_sample_corners_kernel(const T* __restrict__ image, const float2* __restrict__ grid,
+                           T* __restrict__ out, float4* __restrict__ dx, float4* __restrict__ dy,
+                           int n, int h, int w, int ho, int wo) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long per_image = static_cast<long long>(ho) * wo;
+  if (i >= per_image * n) return;
+  const Sample s = sample_at(grid, i, h, w, per_image);
+  const T* img = image + s.image;
+  const Texel v00 = load_texel<T>(img + s.c00);
+  const Texel v01 = load_texel<T>(img + s.c01);
+  const Texel v10 = load_texel<T>(img + s.c10);
+  const Texel v11 = load_texel<T>(img + s.c11);
+  Texel o, ddx, ddy;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float top_dx = __fsub_rn(v01.c[c], v00.c[c]);
+    const float bot_dx = __fsub_rn(v11.c[c], v10.c[c]);
+    const float top = __fadd_rn(v00.c[c], __fmul_rn(top_dx, s.tx));
+    const float bot = __fadd_rn(v10.c[c], __fmul_rn(bot_dx, s.tx));
+    const float top_to_bot = __fsub_rn(bot, top);
+    o.c[c] = __fadd_rn(top, __fmul_rn(top_to_bot, s.ty));
+    ddx.c[c] = __fadd_rn(top_dx, __fmul_rn(__fsub_rn(bot_dx, top_dx), s.ty));
+    ddy.c[c] = top_to_bot;
+  }
+  store_texel<T>(out + i * 4, o);
+  dx[i] = make_float4(ddx.c[0], ddx.c[1], ddx.c[2], ddx.c[3]);
+  dy[i] = make_float4(ddy.c[0], ddy.c[1], ddy.c[2], ddy.c[3]);
 }
 
 }  // namespace
@@ -124,6 +179,30 @@ extern "C" int tha4_grid_sample_forward(const void* image, const void* grid, voi
     grid_sample_kernel<float><<<blocks, threads, 0, s>>>(
         static_cast<const float*>(image), static_cast<const float2*>(grid),
         static_cast<float*>(out), n, h, w, ho, wo);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3: as tha4_grid_sample_forward, and also dx, dy (N, Ho, Wo, 4) f32:
+// dOut/d(ix) and dOut/d(iy) per channel, in source pixels.
+extern "C" int tha4_grid_sample_corners_forward(const void* image, const void* grid, void* out,
+                                                void* dx, void* dy, int n, int h, int w, int ho,
+                                                int wo, int is_bf16, void* stream) {
+  if (n < 1 || h < 1 || w < 1 || ho < 1 || wo < 1) return cudaErrorInvalidValue;
+  const long long total = static_cast<long long>(n) * ho * wo;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    grid_sample_corners_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(image), static_cast<const float2*>(grid),
+        static_cast<__nv_bfloat16*>(out), static_cast<float4*>(dx), static_cast<float4*>(dy), n, h,
+        w, ho, wo);
+  } else {
+    grid_sample_corners_kernel<float><<<blocks, threads, 0, s>>>(
+        static_cast<const float*>(image), static_cast<const float2*>(grid),
+        static_cast<float*>(out), static_cast<float4*>(dx), static_cast<float4*>(dy), n, h, w, ho,
+        wo);
   }
   return static_cast<int>(cudaGetLastError());
 }

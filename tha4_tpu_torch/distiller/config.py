@@ -89,3 +89,6 @@ class DistillerConfig:
 
     def face_morpher_prefix(self) -> str:
         return f"{self.prefix}/face_morpher"
+
+    def body_morpher_prefix(self) -> str:
+        return f"{self.prefix}/body_morpher"

@@ -13,7 +13,10 @@ shipped or JAX-exported character model loads with ``load_state_dict``.
 The forward runs through ``pack`` (once per dtype and device) and the
 ``*_apply`` functions, one K1 launch per level and one K2 launch per frame.
 The face student trains through ``siren_face_morpher_train_apply``: K1
-forward and K4 backward over the module's live f32 parameters.
+forward and K4 backward over the module's live f32 parameters.  The body
+student trains through ``siren_morpher_train_apply``, the channels-last
+formulation of the JAX package's training path: GEMMs, the ``poly_sin``
+kernels (K5) after every sine layer and the differentiable warp K3.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ import torch
 from torch import nn
 
 from tha4_tpu_torch.ops import cuda_siren, warp
+from tha4_tpu_torch.ops.cuda_poly_sin import poly_sin
 from tha4_tpu_torch.ops.cuda_siren import PackedChain
-from tha4_tpu_torch.ops.resize import resize_bilinear_nchw
+from tha4_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_nchw
 
 OMEGA = 30.0
 
@@ -209,7 +213,7 @@ def siren_face_morpher_train_apply(
     return torch.tanh(out) if cfg.siren.use_tanh else out
 
 
-def _morpher_head(out_nhwc: torch.Tensor, image: torch.Tensor) -> List[torch.Tensor]:
+def morpher_head(out_nhwc: torch.Tensor, image: torch.Tensor) -> List[torch.Tensor]:
     """Slice grid change / alpha / colour from the head, warp, alpha-blend;
     ordered per SIREN_MORPHER_INDEX_*."""
     grid_change = out_nhwc[..., 0:2]
@@ -240,4 +244,84 @@ def siren_morpher_apply(
         x = cuda_siren.sine_chain_t(prev, pos_t(s, chain.dtype, pose.device), pose32, chain, OMEGA)
     s = cfg.levels[-1].image_size
     out = x.reshape(n, cfg.image_channels + 3, s, s).permute(0, 2, 3, 1)
-    return _morpher_head(out, image)
+    return morpher_head(out, image)
+
+
+# ---------------------------------------------------------------------------
+# The body student's training path (tha4_tpu/models/siren.py:73-110, 247-321)
+# ---------------------------------------------------------------------------
+
+
+def _rows(conv: nn.Conv2d) -> torch.Tensor:
+    """The live f32 weight as a (Cin, Cout) matrix, the JAX layout."""
+    return conv.weight[:, :, 0, 0].t()
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Operands rounded to x's dtype, exact f32 products and f32 sums: the
+    JAX package's ``matmul(..., preferred_element_type=f32)``."""
+    return torch.matmul(x.float(), w.to(x.dtype).float())
+
+
+def _first_sine_linear_split(conv: nn.Conv2d, x: Optional[torch.Tensor], pose: torch.Tensor, size: int, mixed: bool) -> torch.Tensor:
+    """A level's first sine layer without the [x | pos | pose] concat: the
+    weight rows split that way, the position and pose terms are f32 products
+    folded into the bias, and level 0 (no x) has no x product.  ``mixed``:
+    everything up to the sine in f32, the output in the pose's dtype;
+    otherwise the bias is rounded to that dtype, the x product is in it, and
+    so is omega * pre, before the sine."""
+    dtype = pose.dtype
+    w = _rows(conv)
+    cx = 0 if x is None else x.shape[-1]
+    pos_term = warp.identity_grid(size, size, pose.device) @ w[cx : cx + 2]
+    pose_term = pose.float() @ w[cx + 2 :]
+    bias_f32 = pos_term[None] + pose_term[:, None, None, :] + conv.bias
+    if mixed:
+        pre = bias_f32 if x is None else _matmul_f32(x, w[:cx]) + bias_f32
+        return poly_sin(OMEGA * pre, dtype)
+    bias = bias_f32.to(dtype)
+    pre = bias if x is None else torch.matmul(x, w[:cx].to(dtype)) + bias
+    return poly_sin(OMEGA * pre)
+
+
+def _sine_linear(conv: nn.Conv2d, x: torch.Tensor, mixed: bool) -> torch.Tensor:
+    """sin(omega * (x @ w + b)) in x's dtype; ``mixed``: f32 up to the sine."""
+    if mixed:
+        return poly_sin(OMEGA * (_matmul_f32(x, _rows(conv)) + conv.bias), x.dtype)
+    return poly_sin(OMEGA * (torch.matmul(x, _rows(conv).to(x.dtype)) + conv.bias.to(x.dtype)))
+
+
+def _linear(conv: nn.Conv2d, x: torch.Tensor, mixed: bool) -> torch.Tensor:
+    """The head: in x's dtype, or ``mixed``: f32 products, sums and output."""
+    if mixed:
+        return _matmul_f32(x, _rows(conv)) + conv.bias
+    return torch.matmul(x, _rows(conv).to(x.dtype)) + conv.bias.to(x.dtype)
+
+
+def siren_morpher_train_head(module: SirenMorpher, pose: torch.Tensor, dtype: torch.dtype, mixed: bool = False) -> torch.Tensor:
+    """The body student's training forward up to its head: pose (N, P) ->
+    the (N, S, S, C + 3) head output, differentiable in the module's live
+    f32 parameters (cast inside).  Channels-last GEMMs, a torch-rule
+    bilinear upsample between levels and ``poly_sin`` after every sine layer
+    (9 launches forward, 9 backward for the shipped student).  ``mixed``:
+    bf16 operands, f32 sums, sines and head (the JAX package's
+    selective-f32 training)."""
+    cfg = module.cfg
+    pose = pose.to(dtype)
+    x = None
+    for i, (lv, level) in enumerate(zip(cfg.levels, module.siren_layers)):
+        s = lv.image_size
+        xr = None if i == 0 else resize_bilinear(x, (s, s))
+        x = _first_sine_linear_split(level[0].linear, xr, pose, s, mixed)
+        for layer in level[1:]:
+            x = _sine_linear(layer.linear, x, mixed)
+    return _linear(module.last_linear, x, mixed)
+
+
+def siren_morpher_train_apply(
+    module: SirenMorpher, image: torch.Tensor, pose: torch.Tensor, dtype: torch.dtype, mixed: bool = False
+) -> List[torch.Tensor]:
+    """The body student's training forward, the counterpart of
+    ``siren_morpher_apply_nhwc``: image (N, S, S, C) and pose (N, P) in
+    ``dtype`` -> the five outputs, the head's warp through K3."""
+    return morpher_head(siren_morpher_train_head(module, pose, dtype, mixed), image)

@@ -1,0 +1,272 @@
+"""ADM-style conditional U-Net, the trunk of the body morpher and the
+upscaler teachers (counterpart of the plain NHWC flow of
+``tha4_tpu/models/unet.py``).
+
+  * ResBlocks with two FiLM scale-shifts: the (vestigial, t = 0) time
+    embedding, then the pose embedding; resampling inside the block
+    (nearest-2x up / avg-pool-2x down on both paths); zero-init ``conv1``.
+  * Spatial self-attention over the deepest level's tokens, in both qkv
+    orders: q and k each scaled by ch^-1/4, softmax in f32, explicit
+    matmuls (not SDPA, so the JAX arithmetic is kept); zero-init output
+    projection.
+  * The down path stores every block output as a skip; each up level
+    consumes ``num_res_blocks_per_level + 1`` of them, last in first out.
+
+Parameters carry the reference ``state_dict`` keys that
+``tha4_tpu/convert/torch_weights.py:convert_unet`` reads (``time_embed.{1,3}``,
+``cond_embed.{0,2}``, ``down_blocks.{i}.res_blocks.{j}.cond0_layers.1``,
+``middle_blocks.{2i+1}.module``, ``up_blocks.{k}.resnet_blocks.{j}``,
+``last.{0,2}``, ...).  Activations are NHWC; the convolutions see them as
+channels-last NCHW (``ops.nn.conv_nhwc``), cuDNN's fast layout.
+
+The JAX module's lane-packed flow (``_apply_packed_flow``,
+``_fused_resblock*``, the ``probe`` cut) is TPU 128-lane packing and is left
+behind on purpose: channels-last is the GPU's form of the same layout.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tha4_tpu_torch.ops import nn as tnn
+from tha4_tpu_torch.ops import wide
+from tha4_tpu_torch.ops.resize import downsample_avg_2x, upsample_nearest_2x
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    num_heads: Optional[int] = 1
+    num_head_channels: Optional[int] = None
+    use_new_attention_order: bool = False
+
+    def heads_for(self, channels: int) -> int:
+        if self.num_head_channels is None:
+            assert channels % self.num_heads == 0
+            return self.num_heads
+        assert channels % self.num_head_channels == 0
+        return channels // self.num_head_channels
+
+
+@dataclass(frozen=True)
+class UnetConfig:
+    in_channels: int = 3
+    out_channels: int = 3
+    model_channels: int = 64
+    level_channel_multipliers: Tuple[int, ...] = (1, 2, 4, 8)
+    level_use_attention: Tuple[bool, ...] = (False, False, False, False)
+    num_res_blocks_per_level: int = 2
+    num_middle_res_blocks: int = 2
+    time_embedding_channels: Optional[int] = None
+    cond_input_channels: int = 4
+    cond_internal_channels: int = 512
+    attention: AttentionConfig = field(default_factory=AttentionConfig)
+    dropout_prob: float = 0.1  # inert: the teachers run in eval mode
+    condition_bias: float = 1.0
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.level_channel_multipliers)
+
+    @property
+    def t_emb_channels(self) -> int:
+        return self.time_embedding_channels or self.model_channels
+
+
+def compute_timestep_embedding(t: torch.Tensor, out_channels: int) -> torch.Tensor:
+    """Sinusoidal embedding of t (N, 1), [cos || sin]."""
+    half = out_channels // 2
+    scale = -math.log(10000.0) / (half - 1)
+    times = torch.exp(scale * torch.arange(0, half, dtype=t.dtype, device=t.device))[None, :] * t
+    emb = torch.cat([torch.cos(times), torch.sin(times)], dim=1)
+    if out_channels % 2 == 1:
+        emb = F.pad(emb, (1, 1))
+    return emb
+
+
+def _scale_shift(x: torch.Tensor, scaleshift: torch.Tensor, condition_bias: float) -> torch.Tensor:
+    """x (N,H,W,C), scaleshift (N,2C): x * (bias + scale) + shift."""
+    scale, shift = scaleshift[:, None, None, :].chunk(2, dim=-1)
+    return x * (condition_bias + scale.to(x.dtype)) + shift.to(x.dtype)
+
+
+class ResBlock(nn.Module):
+    """GN -> SiLU -> [resample] -> conv0 -> GN -> FiLM(t) -> FiLM(pose) ->
+    SiLU -> conv1, plus the [resampled, 1x1-projected] input."""
+
+    def __init__(self, cin: int, cout: int, cond_channels: int, sampling: str = "same"):
+        super().__init__()
+        self.sampling = sampling
+        self.norm0 = tnn.GroupNorm(cin)
+        self.conv0 = tnn.conv3(cin, cout, bias=True)
+        self.cond0_layers = nn.Sequential(nn.SiLU(), tnn.Linear(cond_channels, 2 * cout))
+        self.norm1 = tnn.GroupNorm(cout)
+        self.conv1 = tnn.conv3(cout, cout, bias=True)
+        self.cond1_layers = nn.Sequential(nn.SiLU(), tnn.Linear(cond_channels, 2 * cout))
+        self.skip = tnn.conv1(cin, cout) if cin != cout else None
+
+    def forward(self, x: torch.Tensor, cond0: torch.Tensor, cond1: torch.Tensor, condition_bias: float) -> torch.Tensor:
+        resample = {"same": lambda a: a, "up": upsample_nearest_2x, "down": downsample_avg_2x}[self.sampling]
+        h = F.silu(self.norm0(x))
+        h = tnn.conv_nhwc(self.conv0, resample(h))
+        h = self.norm1(h)
+        h = _scale_shift(h, self.cond0_layers(cond0), condition_bias)
+        h = _scale_shift(h, self.cond1_layers(cond1), condition_bias)
+        h = tnn.conv_nhwc(self.conv1, F.silu(h))
+        skip = resample(x)
+        if self.skip is not None:
+            skip = tnn.conv_nhwc(self.skip, skip)
+        return skip + h
+
+
+class AttentionBlock(nn.Module):
+    """x + proj(attention(qkv(GN(x)))); the projection's key is ``conv``."""
+
+    def __init__(self, channels: int, attention: AttentionConfig):
+        super().__init__()
+        self.attention = attention
+        self.norm = tnn.GroupNorm(channels)
+        self.qkv = tnn.conv1(channels, 3 * channels)
+        self.conv = tnn.conv1(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, hh, ww, c = x.shape
+        heads = self.attention.heads_for(c)
+        ch = c // heads
+        qkv = tnn.conv_nhwc(self.qkv, self.norm(x)).reshape(n, hh * ww, 3 * c)
+        if self.attention.use_new_attention_order:
+            q, k, v = (t.reshape(n, hh * ww, heads, ch) for t in qkv.chunk(3, dim=-1))
+        else:  # per head (q, k, v) interleaved: (heads, 3, ch)
+            qkv = qkv.reshape(n, hh * ww, heads, 3, ch)
+            q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+        scale = 1.0 / math.sqrt(math.sqrt(ch))
+        weight = torch.einsum("nthc,nshc->nhts", q * scale, k * scale)
+        weight = torch.softmax(wide(weight), dim=-1).to(x.dtype)
+        out = torch.einsum("nhts,nshc->nthc", weight, v).reshape(n, hh, ww, c)
+        return x + tnn.conv_nhwc(self.conv, out)
+
+
+class _Wrapped(nn.Module):
+    """A middle-block attention sits under ``.module`` in the reference."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module
+
+
+class Unet(nn.Module):
+    """x (N,S,S,Cin), t (N,1), cond (N,cond_input_channels) -> (N,S,S,Cout)."""
+
+    def __init__(self, cfg: UnetConfig):
+        super().__init__()
+        self.cfg = cfg
+        cond_ch = cfg.cond_internal_channels
+        self.time_embed = nn.Sequential(nn.Identity(), tnn.Linear(cfg.t_emb_channels, cond_ch), nn.SiLU(), tnn.Linear(cond_ch, cond_ch))
+        self.cond_embed = nn.Sequential(tnn.Linear(cfg.cond_input_channels, cond_ch), nn.SiLU(), tnn.Linear(cond_ch, cond_ch))
+        self.first_conv = tnn.conv3(cfg.in_channels, cfg.model_channels, bias=True)
+
+        current = cfg.model_channels
+        channels = [current]
+        self.down_blocks = nn.ModuleList()
+        for i in range(cfg.num_levels):
+            out_ch = cfg.model_channels * cfg.level_channel_multipliers[i]
+            blk = nn.Module()
+            blk.res_blocks = nn.ModuleList()
+            for j in range(cfg.num_res_blocks_per_level):
+                blk.res_blocks.append(ResBlock(current if j == 0 else out_ch, out_ch, cond_ch))
+                channels.append(out_ch)
+            if cfg.level_use_attention[i]:
+                blk.attention_blocks = nn.ModuleList(AttentionBlock(out_ch, cfg.attention) for _ in blk.res_blocks)
+            if i < cfg.num_levels - 1:
+                blk.downsample = ResBlock(out_ch, out_ch, cond_ch, "down")
+                channels.append(out_ch)
+            self.down_blocks.append(blk)
+            current = out_ch
+
+        self.middle_blocks = nn.ModuleList()
+        for _ in range(cfg.num_middle_res_blocks - 1):
+            self.middle_blocks.append(ResBlock(current, current, cond_ch))
+            self.middle_blocks.append(_Wrapped(AttentionBlock(current, cfg.attention)))
+        self.middle_blocks.append(ResBlock(current, current, cond_ch))
+
+        self.up_blocks = nn.ModuleList()
+        for i in reversed(range(cfg.num_levels)):
+            skip_channels = [channels.pop() for _ in range(cfg.num_res_blocks_per_level + 1)]
+            out_ch = cfg.model_channels * cfg.level_channel_multipliers[i]
+            blk = nn.Module()
+            blk.resnet_blocks = nn.ModuleList(
+                ResBlock((current if j == 0 else out_ch) + skip_channels[j], out_ch, cond_ch)
+                for j in range(cfg.num_res_blocks_per_level + 1)
+            )
+            if cfg.level_use_attention[i]:
+                blk.attention_blocks = nn.ModuleList(AttentionBlock(out_ch, cfg.attention) for _ in blk.resnet_blocks)
+            if i > 0:
+                blk.upsample = ResBlock(out_ch, out_ch, cond_ch, "up")
+            self.up_blocks.append(blk)
+            current = out_ch
+        assert not channels
+        self.last = nn.Sequential(tnn.GroupNorm(current), nn.SiLU(), tnn.conv3(current, cfg.out_channels, bias=True))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """The JAX package's init: torch-default ('none') convs and linears,
+        unit norms, and zero weights and biases in every ResBlock's conv1,
+        every attention projection and the last conv."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                tnn.init_linear_(m, gen)
+            elif isinstance(m, nn.Conv2d):
+                tnn.init_conv_(m, "none", gen)
+            elif isinstance(m, tnn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        for m in self.modules():
+            if isinstance(m, ResBlock):
+                tnn.init_conv_(m.conv1, "zero", gen)
+            elif isinstance(m, AttentionBlock):
+                tnn.init_conv_(m.conv, "zero", gen)
+        tnn.init_conv_(self.last[2], "zero", gen)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                first_conv_addition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``first_conv_addition`` (N,S,S,model_channels) is added to the first
+        conv's output (the reference's UnetWithFirstConvAddition)."""
+        cfg = self.cfg
+        t_emb = self.time_embed(compute_timestep_embedding(wide(t), cfg.t_emb_channels)).to(x.dtype)
+        cond_emb = self.cond_embed(wide(cond)).to(x.dtype)
+        cb = cfg.condition_bias
+
+        h = tnn.conv_nhwc(self.first_conv, x)
+        if first_conv_addition is not None:
+            h = h + first_conv_addition
+        hs: List[torch.Tensor] = [h]
+        for i, blk in enumerate(self.down_blocks):
+            for j, rb in enumerate(blk.res_blocks):
+                h = rb(h, t_emb, cond_emb, cb)
+                if cfg.level_use_attention[i]:
+                    h = blk.attention_blocks[j](h)
+                hs.append(h)
+            if hasattr(blk, "downsample"):
+                h = blk.downsample(h, t_emb, cond_emb, cb)
+                hs.append(h)
+
+        for blk in self.middle_blocks:
+            h = blk.module(h) if isinstance(blk, _Wrapped) else blk(h, t_emb, cond_emb, cb)
+
+        for idx, blk in enumerate(self.up_blocks):
+            i = cfg.num_levels - 1 - idx
+            for j, rb in enumerate(blk.resnet_blocks):
+                h = rb(torch.cat([h, hs.pop()], dim=-1), t_emb, cond_emb, cb)
+                if cfg.level_use_attention[i]:
+                    h = blk.attention_blocks[j](h)
+            if hasattr(blk, "upsample"):
+                h = blk.upsample(h, t_emb, cond_emb, cb)
+        assert not hs
+
+        norm, _, last_conv = self.last
+        return tnn.conv_nhwc(last_conv, F.silu(norm(h)))

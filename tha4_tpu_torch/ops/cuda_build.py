@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``tha4_tpu_torch/csrc``).
 
-The sources have a plain C interface and include no PyTorch header, so one
-``nvcc`` call compiles them all into a shared library in seconds; ``ctypes``
-loads it.  The library is built at first use and keyed on a hash of the
-sources and flags, so an edited kernel is rebuilt and an unchanged one is
-reused.  It lands in ``tha4_tpu_torch/_build/`` (ignored by git).
+The sources have a plain C interface and include no PyTorch header, so
+``nvcc`` compiles each in seconds: one process per ``.cu`` file, all started
+together, then one link into a shared library that ``ctypes`` loads.  The
+library is built at first use and keyed on a hash of the sources and flags,
+so an edited kernel is rebuilt and an unchanged one is reused.  It lands in
+``tha4_tpu_torch/_build/`` (ignored by git).
 
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
@@ -23,15 +24,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -O3 and exact IEEE float math: no --use_fast_math, which would swap in
 # approximate division/sqrt and flush denormals.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # prev, has_prev, cp, pos, pose, pose_dim, w, b, specs, num_layers,
     # num_sine, omega, out, n, hw, is_bf16, stream
@@ -43,6 +43,12 @@ _SIGNATURES = {
                                  ctypes.c_float, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     # image, grid, out, n, h, w, ho, wo, is_bf16, stream
     "tha4_grid_sample_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # image, grid, out, dx, dy, n, h, w, ho, wo, is_bf16, stream
+    "tha4_grid_sample_corners_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # a, out, n, dtypes, stream
+    "tha4_poly_sin_forward": [_P, _P, _L, _I, _P],
+    # a, g, da, n, dtypes, stream
+    "tha4_poly_sin_backward": [_P, _P, _P, _L, _I, _P],
 }
 
 
@@ -77,21 +83,28 @@ def build() -> Path:
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for obj, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(obj)}: nvcc failed ({proc.returncode})")
+        so.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("\n".join(failed) + "\n" + "".join(log))
+        linked = os.path.join(tmp, so.name)
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", linked, *(obj for obj, _ in jobs)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(linked, so)
     return so
 
 

@@ -1,33 +1,42 @@
-"""K2: the bilinear border warp (counterpart of ``tha4_tpu/ops/pallas_warp.py``).
+"""K2 and K3: the bilinear border warp and its differentiable form
+(counterpart of ``tha4_tpu/ops/pallas_warp.py``).
 
-``grid_sample_fast`` launches the CUDA kernel in ``csrc/warp.cu`` for CUDA
-tensors and runs ``grid_sample_bilinear_border``, the plain PyTorch version,
-for CPU tensors.  Both compute torch ``grid_sample(mode='bilinear',
+``grid_sample_fast`` (K2) launches the CUDA kernel in ``csrc/warp.cu`` for
+CUDA tensors and runs ``grid_sample_bilinear_border``, the plain PyTorch
+version, for CPU tensors.  Both compute torch ``grid_sample(mode='bilinear',
 padding_mode='border', align_corners=False)`` on NHWC images exactly: unlike
 the TPU kernel there is no displacement window and no bf16 lerp weight, so
-``'auto'`` and ``'strict'`` are the same thing in ``ops.warp``.
+``'auto'`` and ``'strict'`` are the same thing in ``ops.warp``.  K2 has no
+autograd, so it refuses a grid or image that requires a gradient while grad
+mode is on: a bare K2 call must never drop a gradient silently.
 
-No autograd: the students that train so far take no gradient through a
-warp; the gradient-emitting variant (K3) comes with the body student.
+``grid_sample_train`` is the differentiable warp, the counterpart of the JAX
+``grid_sample_fast``'s custom VJP.  Its forward (K3,
+``grid_sample_corners``) also writes dOut/d(ix) and dOut/d(iy) per channel,
+f32, so the backward is elementwise with no second gather:
+dgrid = sum_c dout_c * D_c * clamp mask * size / 2.  The image is a constant:
+its cotangent is zero, the contract of ``pallas_warp.py:24-31``.  One
+``torch.autograd.Function`` serves both devices; only its forward differs
+(the kernel on CUDA, ``grid_sample_corners_plain`` on the CPU), so the CPU
+and the card share one backward formula.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from tha4_tpu_torch.ops import cuda_build
+from tha4_tpu_torch.ops import cuda_build, wide
 
 
-def grid_sample_bilinear_border(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample ``image`` (N,H,W,C) at ``grid`` (N,Ho,Wo,2) in [-1,1].
-
-    The plain version: coordinate math and lerp in f32 whatever the image
-    dtype, in the order clip -> floor -> corners -> lerp x -> lerp y of
-    ``tha4_tpu/ops/warp.py:grid_sample_bilinear_border``; the result is cast
-    to the image dtype."""
+def _corners(image: torch.Tensor, grid: torch.Tensor):
+    """The four corners (f32, or f64 for f64 inputs; (N, Ho, Wo, C) each)
+    and the lerp weights (N, Ho, Wo, 1), in the order clip -> floor -> corners of
+    ``tha4_tpu/ops/warp.py:grid_sample_bilinear_border``."""
     n, h, w, c = image.shape
-    gx = grid[..., 0].float()
-    gy = grid[..., 1].float()
+    gx = wide(grid[..., 0])
+    gy = wide(grid[..., 1])
     ix = (((gx + 1.0) * w - 1.0) * 0.5).clamp(0.0, w - 1.0)
     iy = (((gy + 1.0) * h - 1.0) * 0.5).clamp(0.0, h - 1.0)
     ix0 = ix.floor()
@@ -39,27 +48,52 @@ def grid_sample_bilinear_border(image: torch.Tensor, grid: torch.Tensor) -> torc
     ix1 = (ix0 + 1).clamp(max=w - 1)
     iy1 = (iy0 + 1).clamp(max=h - 1)
 
-    flat = image.reshape(n, h * w, c).float()
+    flat = wide(image.reshape(n, h * w, c))
     ho, wo = grid.shape[1], grid.shape[2]
 
     def gather(yy, xx):
         idx = (yy * w + xx).reshape(n, ho * wo, 1).expand(n, ho * wo, c)
         return torch.gather(flat, 1, idx).reshape(n, ho, wo, c)
 
-    v00 = gather(iy0, ix0)
-    v01 = gather(iy0, ix1)
-    v10 = gather(iy1, ix0)
-    v11 = gather(iy1, ix1)
+    return gather(iy0, ix0), gather(iy0, ix1), gather(iy1, ix0), gather(iy1, ix1), tx, ty
+
+
+def grid_sample_bilinear_border(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample ``image`` (N,H,W,C) at ``grid`` (N,Ho,Wo,2) in [-1,1].
+
+    The plain version of K2: coordinate math and lerp in f32 whatever the
+    image dtype (f64 for an f64 image and grid; lerp x, then y); the result
+    is cast to the image dtype."""
+    v00, v01, v10, v11, tx, ty = _corners(image, grid)
     top = v00 + (v01 - v00) * tx
     bottom = v10 + (v11 - v10) * tx
     return (top + (bottom - top) * ty).to(image.dtype)
+
+
+def grid_sample_corners_plain(image: torch.Tensor, grid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K3: (out in the image dtype, dx, dy f32), all
+    (N, Ho, Wo, C), in the f32 order of ``_fwd_corners_kernel``
+    (``pallas_warp.py:203-213``); ``out`` equals K2's."""
+    v00, v01, v10, v11, tx, ty = _corners(image, grid)
+    top_dx = v01 - v00
+    bot_dx = v11 - v10
+    top = v00 + top_dx * tx
+    bot = v10 + bot_dx * tx
+    dy = bot - top
+    out = (top + dy * ty).to(image.dtype)
+    dx = top_dx + (bot_dx - top_dx) * ty
+    return out, dx, dy
 
 
 def grid_sample_fast(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Warp NHWC ``image`` (N,H,W,4, f32 or bf16) at ``grid`` (N,Ho,Wo,2 f32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
-    anything the kernel does not take raises."""
+    anything the kernel does not take raises.  No autograd, on either
+    device: ``grid_sample_train`` is the differentiable warp."""
+    if torch.is_grad_enabled() and (grid.requires_grad or image.requires_grad):
+        raise RuntimeError("grid_sample_fast has no gradient: warp a grid that requires grad "
+                           "with grid_sample_train (ops.warp.apply_grid_change routes it)")
     if image.device.type == "cpu":
         return grid_sample_bilinear_border(image, grid)
     if image.device.type != "cuda":
@@ -79,6 +113,75 @@ def grid_sample_fast(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
 
 grid_sample_fast.launches = 0
+
+
+def grid_sample_corners(image: torch.Tensor, grid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's forward: (out, dx, dy) as ``grid_sample_corners_plain`` returns
+    them.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel, and anything it does not take raises."""
+    if image.device.type == "cpu":
+        return grid_sample_corners_plain(image, grid)
+    if image.device.type != "cuda":
+        raise ValueError(f"grid_sample_corners: unsupported device {image.device}")
+    _check(image, grid)
+    n, h, w, _ = image.shape
+    ho, wo = grid.shape[1], grid.shape[2]
+    out = torch.empty((n, ho, wo, 4), dtype=image.dtype, device=image.device)
+    dx = torch.empty((n, ho, wo, 4), dtype=torch.float32, device=image.device)
+    dy = torch.empty_like(dx)
+    stream = torch.cuda.current_stream(image.device).cuda_stream
+    status = cuda_build.library().tha4_grid_sample_corners_forward(
+        image.data_ptr(), grid.data_ptr(), out.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        n, h, w, ho, wo, int(image.dtype == torch.bfloat16), stream,
+    )
+    cuda_build.check(status, "grid_sample_corners")
+    grid_sample_corners.launches += 1
+    return out, dx, dy
+
+
+grid_sample_corners.launches = 0
+
+
+def grid_sample_grad(g: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor, grid: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """dgrid from the output's cotangent ``g`` and K3's fields
+    (``pallas_warp.py:336-350``): the channel sums of g * D, zero where the
+    unnormalised coordinate is clamped (strict masks), times size / 2; in the
+    grid's dtype."""
+    dout = g.float()
+    dv_dix = (dout * dx).sum(dim=-1)
+    dv_diy = (dout * dy).sum(dim=-1)
+    ix_un = ((grid[..., 0].float() + 1.0) * w - 1.0) * 0.5
+    iy_un = ((grid[..., 1].float() + 1.0) * h - 1.0) * 0.5
+    gxmask = ((ix_un > 0.0) & (ix_un < w - 1.0)).float()
+    gymask = ((iy_un > 0.0) & (iy_un < h - 1.0)).float()
+    return torch.stack([dv_dix * gxmask * (0.5 * w), dv_diy * gymask * (0.5 * h)], dim=-1).to(grid.dtype)
+
+
+class GridSampleFunction(torch.autograd.Function):
+    """K3 forward, elementwise backward; gradients reach the grid only."""
+
+    @staticmethod
+    def forward(ctx, image, grid):
+        out, dx, dy = grid_sample_corners(image, grid)
+        ctx.save_for_backward(dx, dy, grid)
+        ctx.image_shape, ctx.image_dtype = image.shape, image.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, dy, grid = ctx.saved_tensors
+        _, h, w, _ = ctx.image_shape
+        dgrid = grid_sample_grad(g, dx, dy, grid, h, w) if ctx.needs_input_grad[1] else None
+        dimage = None
+        if ctx.needs_input_grad[0]:
+            dimage = torch.zeros(ctx.image_shape, dtype=ctx.image_dtype, device=g.device)
+        return dimage, dgrid
+
+
+def grid_sample_train(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The differentiable warp: K3 forward (its plain version on the CPU),
+    gradient to the grid only; the image's cotangent is zero."""
+    return GridSampleFunction.apply(image, grid)
 
 
 def _check(image: torch.Tensor, grid: torch.Tensor) -> None:

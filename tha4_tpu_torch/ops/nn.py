@@ -1,17 +1,20 @@
-"""The teacher's building blocks (counterpart of ``tha4_tpu/ops/nn.py``,
-only what the mode_12 face teacher uses).
+"""The teachers' building blocks (counterpart of ``tha4_tpu/ops/nn.py``,
+what the mode_12 and mode_07 teachers use).
 
 Modules hold f32 parameters under the reference ``state_dict`` keys: a conv,
 downsample or upsample block is ``nn.Sequential(conv, norm, act)`` (keys
 ``….0.weight``, ``….1.weight``, ``….1.bias``), a resnet block keeps
-``resnet_path.{0,1,3,4}``.  They run on NCHW tensors; the models permute
-NHWC images in and out, which gives cuDNN channels-last memory.
+``resnet_path.{0,1,3,4}``.  The convolutions run on NCHW tensors; the
+models permute NHWC images in and out, which gives cuDNN channels-last
+memory.  Group norm and the linears work on channels-last tensors, as the
+U-Net keeps them.
 
-Precision follows the JAX package: a convolution casts its weight and bias
-to the input's dtype (bf16 operands, f32 accumulation in cuDNN); instance
-norm statistics are f32 and its affine is f32, its output in the input's
-dtype.  Convolutions are cuDNN's: the JAX package leaves them to XLA,
-outside any Pallas kernel.
+Precision follows the JAX package: a convolution or linear casts its weight
+and bias to the input's dtype (bf16 operands, f32 accumulation in cuDNN and
+cuBLAS; a linear adds its bias after the product, as ``x @ w + b`` rounds);
+instance and group norm statistics are f32 and their affine is f32, their
+output in the input's dtype.  Convolutions are cuDNN's: the JAX package
+leaves them to XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tha4_tpu_torch.ops import wide
 
 
 class Conv2d(nn.Conv2d):
@@ -57,13 +62,65 @@ def instance_norm(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optiona
         var = (centered * centered).mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
         out = centered.float() * torch.rsqrt(var + eps)
     else:
-        xf = x.float()
+        xf = wide(x)
         mean = xf.mean(dim=(2, 3), keepdim=True)
         var = ((xf - mean) ** 2).mean(dim=(2, 3), keepdim=True)
         out = (xf - mean) * torch.rsqrt(var + eps)
     if weight is not None:
         out = out * weight[:, None, None] + bias[:, None, None]
     return out.to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor], num_groups: int, eps: float = 1e-5):
+    """GroupNorm over NHWC ``x`` with ``num_groups`` groups (the reference's
+    GroupNorm32 takes min(32, C)), the arithmetic of
+    ``tha4_tpu/ops/nn.py:group_norm``: the bf16 strategy of ``instance_norm``
+    per group."""
+    n, h, w, c = x.shape
+    xg = x.reshape(n, h, w, num_groups, c // num_groups)
+    if x.dtype == torch.bfloat16:
+        mean = xg.mean(dim=(1, 2, 4), keepdim=True, dtype=torch.float32)
+        centered = xg - mean.to(x.dtype)
+        var = (centered * centered).mean(dim=(1, 2, 4), keepdim=True, dtype=torch.float32)
+        out = (centered.float() * torch.rsqrt(var + eps)).reshape(n, h, w, c)
+    else:
+        xf = wide(xg)
+        mean = xf.mean(dim=(1, 2, 4), keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
+        out = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
+    if weight is not None:
+        out = out * weight + bias
+    return out.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Affine group norm over NHWC with min(32, C) groups; ``weight`` /
+    ``bias`` keys, f32."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.num_groups = min(32, channels)
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.num_groups)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype: ``x @ w + b`` with weight and
+    bias cast to it, the product rounded before the bias is added
+    (``tha4_tpu/ops/nn.py:linear``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.matmul(x, self.weight.to(x.dtype).t())
+        return out if self.bias is None else out + self.bias.to(x.dtype)
+
+
+def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Apply an NCHW convolution module to an NHWC tensor (free permutes:
+    cuDNN sees channels-last memory)."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class InstanceNorm2d(nn.Module):
@@ -96,22 +153,43 @@ def nonlinearity(name: str) -> nn.Module:
 @torch.no_grad()
 def init_conv_(conv: nn.Module, method: str, gen: torch.Generator) -> None:
     """'he': N(0, 2 / fan_in) with torch's fan_in (in x kh x kw for a conv,
-    out x kh x kw for a transposed conv); 'zero'.  A bias is U(+-1/sqrt(fan_in))."""
+    out x kh x kw for a transposed conv); 'none': torch's default,
+    U(+-1/sqrt(fan_in)); 'zero'.  A bias is U(+-1/sqrt(fan_in)), or zero
+    under 'zero' (the JAX package zeroes every zero-init conv's bias)."""
     kh, kw = conv.kernel_size
     fan_in = (conv.out_channels if isinstance(conv, nn.ConvTranspose2d) else conv.in_channels) * kh * kw
+    bound = 1.0 / math.sqrt(fan_in)
     if method == "he":
         conv.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
+    elif method == "none":
+        conv.weight.uniform_(-bound, bound, generator=gen)
     elif method == "zero":
         conv.weight.zero_()
     else:
         raise ValueError(f"Invalid initialization method {method}")
     if conv.bias is not None:
-        bound = 1.0 / math.sqrt(fan_in)
-        conv.bias.uniform_(-bound, bound, generator=gen)
+        if method == "zero":
+            conv.bias.zero_()
+        else:
+            conv.bias.uniform_(-bound, bound, generator=gen)
+
+
+@torch.no_grad()
+def init_linear_(linear: nn.Linear, gen: torch.Generator) -> None:
+    """torch's default for a linear, 'none' in the JAX package: weight and
+    bias U(+-1/sqrt(in_features))."""
+    bound = 1.0 / math.sqrt(linear.in_features)
+    linear.weight.uniform_(-bound, bound, generator=gen)
+    if linear.bias is not None:
+        linear.bias.uniform_(-bound, bound, generator=gen)
 
 
 def conv3(cin: int, cout: int, bias: bool) -> Conv2d:
     return Conv2d(cin, cout, kernel_size=3, padding=1, bias=bias)
+
+
+def conv1(cin: int, cout: int) -> Conv2d:
+    return Conv2d(cin, cout, kernel_size=1, bias=True)
 
 
 def conv_block(cin: int, cout: int, nonlin: str) -> nn.Sequential:

@@ -1,9 +1,9 @@
 """Resize ops with torch ``interpolate`` semantics, no antialiasing
 (counterpart of ``tha4_tpu/ops/resize.py``).
 
-Bilinear resizing is two 1-D interpolation-matrix products in f32 (output
-pixel i samples ``(i + 0.5) * scale - 0.5``, clamped at the edges), then a
-cast back to the input dtype.  The products are plain ``torch.matmul``; in
+Bilinear resizing is two 1-D interpolation-matrix products in f32 (f64 for
+an f64 input; output pixel i samples ``(i + 0.5) * scale - 0.5``, clamped
+at the edges), then a cast back to the input dtype.  The products are plain ``torch.matmul``; in
 f32 they are full-f32 products because ``StudentPoser`` turns TF32 off.
 """
 
@@ -14,6 +14,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from tha4_tpu_torch.ops import wide
 
 
 @functools.lru_cache(maxsize=64)
@@ -33,7 +35,10 @@ def _bilinear_matrix_np(in_size: int, out_size: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _bilinear_matrix(in_size: int, out_size: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(_bilinear_matrix_np(in_size, out_size)).to(device)
+    # A normal tensor even when first asked for under inference mode (see
+    # ops.warp._identity_grid).
+    with torch.inference_mode(False):
+        return torch.from_numpy(_bilinear_matrix_np(in_size, out_size)).to(device)
 
 
 def resize_bilinear_nchw(image: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -43,11 +48,11 @@ def resize_bilinear_nchw(image: torch.Tensor, size: Tuple[int, int]) -> torch.Te
     if (h, w) == (ho, wo):
         return image
     device = str(image.device)
-    x = image.float()
+    x = wide(image)
     if h != ho:  # H first, then W, as the JAX package does
-        x = torch.matmul(_bilinear_matrix(h, ho, device).T, x)  # (n, c, ho, w)
+        x = torch.matmul(_bilinear_matrix(h, ho, device).to(x.dtype).T, x)  # (n, c, ho, w)
     if w != wo:
-        x = torch.matmul(x, _bilinear_matrix(w, wo, device))  # (n, c, ho, wo)
+        x = torch.matmul(x, _bilinear_matrix(w, wo, device).to(x.dtype))  # (n, c, ho, wo)
     return x.to(image.dtype)
 
 

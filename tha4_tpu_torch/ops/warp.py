@@ -3,7 +3,7 @@
 Layouts follow the JAX package: NHWC images and (N, H, W, 2) grid changes
 with x first, normalised to [-1, 1] as torch ``affine_grid`` /
 ``grid_sample(align_corners=False)`` use them.  Grid math is f32 whatever the
-image dtype.  The warp itself is K2 (``ops.cuda_warp``).
+image dtype.  The warp itself is K2, or K3 under autograd (``ops.cuda_warp``).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from tha4_tpu_torch.ops import cuda_warp
+from tha4_tpu_torch.ops import cuda_warp, wide
 from tha4_tpu_torch.ops.cuda_warp import grid_sample_bilinear_border
 
 WARP_MODES = ("auto", "strict", "never")
@@ -29,7 +29,10 @@ def _identity_grid_np(h: int, w: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _identity_grid(h: int, w: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(_identity_grid_np(h, w)).to(device)
+    # A normal tensor even when first asked for under inference mode: the
+    # cache outlives that block, and training saves the grid for backward.
+    with torch.inference_mode(False):
+        return torch.from_numpy(_identity_grid_np(h, w)).to(device)
 
 
 def identity_grid(h: int, w: int, device="cpu") -> torch.Tensor:
@@ -46,15 +49,19 @@ def apply_grid_change(grid_change: torch.Tensor, image: torch.Tensor, fast: str 
 
     The grid is identity + change, built in f32.  ``fast``: ``'auto'`` and
     ``'strict'`` run K2 (the kernel on CUDA tensors, its plain version on CPU
-    tensors); both are exact, since the port's warp has no TPU window budget.
-    ``'never'`` runs the plain version explicitly."""
+    tensors), or K3 where the grid needs a gradient (gradient to the grid
+    only, the image a constant, as the JAX package's fast warp); both are
+    exact, since the port's warp has no TPU window budget.  ``'never'`` runs
+    the plain version explicitly, differentiable in image and grid."""
     if fast not in WARP_MODES:
         raise ValueError(f"fast must be one of {WARP_MODES}, got {fast!r}")
     n, h, w, _ = image.shape
-    grid = identity_grid(h, w, image.device)[None] + grid_change.float()
+    grid = identity_grid(h, w, image.device)[None] + wide(grid_change)
     grid = grid.expand(n, h, w, 2).contiguous()
     if fast == "never":
         return grid_sample_bilinear_border(image, grid)
+    if torch.is_grad_enabled() and (grid.requires_grad or image.requires_grad):
+        return cuda_warp.grid_sample_train(image, grid)
     return cuda_warp.grid_sample_fast(image, grid)
 
 

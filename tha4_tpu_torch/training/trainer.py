@@ -6,7 +6,8 @@
     ``{prefix}/checkpoint/{i:04d}`` (and checkpoint 0 on a fresh start), a
     rolling snapshot every ``examples_per_snapshot`` examples;
   * resume from the newest loadable state whose progress fits the target;
-  * the lr is ``lr_fn(examples_seen)`` before every step;
+  * the lr is ``lr_fn(examples_seen)`` and the loss weights
+    ``loss_weights_fn(examples_seen)`` before every step;
   * the named losses go to ``{prefix}/log/scalars.jsonl`` every
     ``log_every_seconds``.
 
@@ -66,9 +67,10 @@ class Trainer:
 
       init_module(generator) -> nn.Module (on its device)
       make_optimizer(module) -> torch.optim.Optimizer
-      train_step(module, optimizer, generator, lr) -> {name: scalar tensor}
+      train_step(module, optimizer, generator, lr, loss_weights) -> {name: scalar tensor}
           one optimizer step; ``generator`` is this step's own
       lr_fn(examples_seen) -> float
+      loss_weights_fn(examples_seen) -> {term: float} (default: none, {})
     """
 
     def __init__(
@@ -78,12 +80,14 @@ class Trainer:
         make_optimizer: Callable[[nn.Module], torch.optim.Optimizer],
         train_step: Callable,
         lr_fn: Callable[[int], float],
+        loss_weights_fn: Optional[Callable[[int], Dict[str, float]]] = None,
     ):
         self.cfg = cfg
         self.init_module = init_module
         self.make_optimizer = make_optimizer
         self.train_step = train_step
         self.lr_fn = lr_fn
+        self.loss_weights_fn = loss_weights_fn or (lambda examples_seen: {})
 
     def _fresh_state(self):
         root = torch.Generator().manual_seed(self.cfg.random_seed)
@@ -120,8 +124,9 @@ class Trainer:
         with open(log_path, "a") as log_file:
             while examples_seen < target_examples:
                 lr = self.lr_fn(examples_seen)
+                weights = self.loss_weights_fn(examples_seen)
                 step = examples_seen // cfg.total_batch_size
-                metrics = self.train_step(module, optimizer, torch.Generator().manual_seed(step_seed(key, step)), lr)
+                metrics = self.train_step(module, optimizer, torch.Generator().manual_seed(step_seed(key, step)), lr, weights)
                 examples_seen += cfg.total_batch_size
 
                 now = time.monotonic()
