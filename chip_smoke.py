@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame and both students' training on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame, teacher poser and both students' training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,17 +44,20 @@ Phases, one or more lines each:
    layer, (8, 512^2, 90), f32 -> bf16 (the mixed path), bf16 and f32;
 10. the body teacher: a seeded full-width random mode_07 (zero-init layers
     brought to life by ``random_teacher_07``) at B = 1 and 8, bf16 and f32:
-    33 finite outputs of the expected shapes through exactly 5 K2 launches
-    a call; the f32 card outputs at B = 1 against the same teacher's plain
+    33 finite outputs of the expected shapes through exactly 5 K2 and 102 K6
+    launches a call; K6 against its plain version at every size those calls
+    gave it, f32 and bf16 (the deep levels on the split grid among them);
+    the f32 card outputs at B = 1 against the same teacher's plain
     CPU run and its f64 run on the CPU (the exact answer, which says which
     f32 side is off), and each U-Net alone on the CPU run's inputs, with
     the bf16 teacher's distance from f64 beside each bar (it must fail
-    them); ms per call and the convolutions' multiply-adds;
+    them); ms per call and the convolutions' multiply-adds (cuDNN's and K6's);
 11. the body-training path: ``DistillationJobs(...).make_body_trainer(
     phases).train()`` with the default six phases scaled to 32 steps at
     batch 8, bf16 with the selective-f32 student, across two checkpoint
     boundaries.  Losses must be finite; each step must launch K2 five
-    times, K3 once, each poly_sin kernel 9 times, K1 and K4 never; resuming
+    times, K3 once, each poly_sin kernel 9 times, K6 102 times (the
+    teacher's U-Nets), K1 and K4 never; resuming
     from checkpoint 1 must reproduce the run; the f32 student gradients on
     the card must match the plain backward on the CPU for the same labels
     and poses, split at the head output (the trunk on the card's head
@@ -62,7 +65,23 @@ Phases, one or more lines each:
     end to end once the pixels where the loss is not smooth between the two
     devices (a texel edge or an L1 kink crossed) are dropped, with the
     head's grid-change rows and every level nonzero; ms/step at batch 8 in
-    bf16 mixed and f32, split into teacher, student and Adam.
+    bf16 mixed and f32, split into teacher, student and Adam;
+12. K6 (``fused_affine_conv3_nchw``, the U-Nets' GroupNorm/FiLM/SiLU + conv3
+    + skip) against its plain version at the five costliest shapes of the
+    teacher's U-Nets at B = 8, f32 and bf16: error over max |plain|, two
+    calls bit-identical, median times beside ``F.conv2d`` alone
+    (channels last, cuDNN); a CUDA input that needs a gradient is refused;
+13. the teacher poser: the five seeded full-width random mode_07 state
+    dicts written as ``.pt`` files drive the ``tha4-torch-pose`` CLI
+    (``python -m tha4_tpu_torch.apps.full_manual_poser``) in f32, in bf16
+    and in a 3-frame bf16 sweep, each writing its PNGs; then
+    ``mode_07.create_poser(module_file_names=...)`` poses one image 4 times
+    in bf16 and in f32: the eyebrow decomposer runs once (the prologue
+    cache), every call launches K6 102 times and K2 5 times, the f32
+    outputs equal ``mode_07.compute_outputs`` of the same teacher on the
+    card in cuDNN's deterministic mode (two calls in its default mode are
+    compared too: some of its f32 algorithms are not deterministic), ms per
+    pose at B = 1 is printed; ``mode_12.create_poser`` gives its 22 outputs.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and
@@ -164,6 +183,30 @@ TEACHER_EXACT_RATIO = 2.0
 UNET_F32_ATOL = 2e-4
 UNET_EXACT_ATOL = 1e-4
 UNET_OUTPUT_NAMES = ("merged", "alpha", "warped", "grid_change", "direct")
+# K6 against its plain version, max-abs error over max |plain|.  f32: FMA
+# sums in another order than cuDNN's over 9 * Cin terms (~1e-6 read);
+# bf16: the same bf16 operands with f32 sums, one rounding of the output
+# (2^-9) and, now and then, an activation rounded to the other bf16
+# neighbour (the exponential's last bit).
+K6_F32_REL = 1e-4
+K6_BF16_REL = 1e-2
+# The five costliest K6 shapes of the teacher's U-Nets at B = 8: (name, H =
+# W, Cin, Cout, skip: "identity", the 1x1 skip's Cs, or None).
+K6_SHAPES = [
+    ("512^2 32->32 +identity", 512, 32, 32, "identity"),
+    ("512^2 96->32", 512, 96, 32, None),
+    ("512^2 32->32 +1x1(96)", 512, 32, 32, 96),
+    ("512^2 64->64 +identity", 512, 64, 64, "identity"),
+    ("256^2 64->64 +identity", 256, 64, 64, "identity"),
+]
+K6_MAIN_SHAPE = "512^2 64->64 +identity"  # the kernels line's ms
+K6_PER_TEACHER_CALL = 55 + 47  # upscaler + body morpher U-Nets
+_K6_SKIP_CONV = 2  # K6's skip modes: 0 none, 1 identity, 2 a 1x1 conv
+# mode_07.create_poser's f32 outputs against compute_outputs of the same
+# frozen teacher: the same kernels on the same inputs, with cuDNN in its
+# deterministic mode (read: bit-equal; 3.1e-4 apart in its default mode).
+POSER_F32_ATOL = 1e-6
+POSES = 4
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -787,10 +830,17 @@ def phase_poly_sin(torch) -> dict:
     return results
 
 
-def _conv_macs(torch, teacher, run) -> int:
+def _conv_macs(torch, teacher, run) -> tuple:
     """Multiply-adds of every convolution in one ``run()`` of ``teacher``,
-    counted from the shapes by forward hooks."""
+    counted from the shapes: by forward hooks on the conv modules cuDNN
+    runs, and at K6's wrapper for the convs K6 runs (it reads its conv's
+    weight and never calls the module; its 1x1 skip counts too, as the
+    cuDNN 1x1 conv it replaces did).  Returns (the multiply-adds, K6's call
+    sizes (N, H, W, Cin, Cout, Cs, skip mode) -> calls)."""
+    from tha4_tpu_torch.ops import cuda_conv
+
     total = [0]
+    k6_sizes = {}
 
     def hook(module, inputs, output):
         kh, kw = module.kernel_size
@@ -799,39 +849,58 @@ def _conv_macs(torch, teacher, run) -> int:
         else:
             total[0] += output.numel() * module.in_channels * kh * kw // module.groups
 
+    k6 = cuda_conv.fused_affine_conv3_nchw
+
+    def k6_counted(x, scale, shift, w9, bias, skip=None, skip_w=None):
+        n, c, h, w = x.shape
+        cout, cs = w9.shape[0], 0 if skip is None else skip.shape[1]
+        mode = 0 if skip is None else (1 if skip_w is None else _K6_SKIP_CONV)
+        size = (n, h, w, c, cout, cs, mode)
+        k6_sizes[size] = k6_sizes.get(size, 0) + 1
+        total[0] += n * h * w * cout * (9 * c + (cs if mode == _K6_SKIP_CONV else 0))
+        return k6(x, scale, shift, w9, bias, skip, skip_w)
+
     handles = [m.register_forward_hook(hook) for m in teacher.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    k6_counted.launches = k6.launches  # the wrapper counts on the function its module name holds
+    cuda_conv.fused_affine_conv3_nchw = k6_counted
     try:
         with torch.no_grad():
             run()
     finally:
+        cuda_conv.fused_affine_conv3_nchw = k6
+        k6.launches = k6_counted.launches
         for h in handles:
             h.remove()
-    return total[0]
+    return total[0], k6_sizes
 
 
 def phase_body_teacher(torch, teacher_params, image) -> dict:
     """The full-width mode_07 at B = 1 and 8, bf16 and f32."""
     from tha4_tpu_torch.distiller.pose_dataset import sample_poses
     from tha4_tpu_torch.models import body_morpher
-    from tha4_tpu_torch.ops import cuda_warp
+    from tha4_tpu_torch.ops import cuda_conv, cuda_warp
     from tha4_tpu_torch.ops.resize import resize_bilinear
     from tha4_tpu_torch.poser.modes import mode_07
     from tha4_tpu_torch.poser.modes.pose_parameters import NUM_EYEBROW_PARAMS, NUM_FACE_PARAMS
 
     checked = {"posed": 0, "grid_change": 3, "face_morphed_full": mode_07.INDEX_FACE_MORPHED_FULL}
-    results = {"ms": {}}
+    results = {"ms": {}, "conv_macs": {}}
     b1 = {}  # dtype tag -> (teacher, poses, the B = 1 outputs on the CPU)
+    k6_sizes = {}  # every size K6 took in these calls -> calls a teacher call
     for tag, dtype in [("bf16", torch.bfloat16), ("f32", torch.float32)]:
         teacher = mode_07.Teacher.from_params(teacher_params).freeze(dtype, "cuda")
         for n in (1, TRAIN_BATCH):
             poses = sample_poses(torch.Generator().manual_seed(SEED + 20 + n), n).cuda()
             images = image.to(dtype).expand(n, *image.shape[1:])
             cuda_warp.grid_sample_fast.launches = 0
+            cuda_conv.fused_affine_conv3_nchw.launches = 0
             with torch.no_grad():
                 outs = mode_07.compute_outputs(teacher, images, poses.to(dtype))
             torch.cuda.synchronize()
-            if cuda_warp.grid_sample_fast.launches != 5:
-                raise AssertionError(f"mode_07 {tag} B={n}: {cuda_warp.grid_sample_fast.launches} K2 launches, expected 5")
+            launches = (cuda_warp.grid_sample_fast.launches, cuda_conv.fused_affine_conv3_nchw.launches)
+            if launches != (5, K6_PER_TEACHER_CALL):
+                raise AssertionError(f"mode_07 {tag} B={n}: {launches} K2 and K6 launches, expected 5 and {K6_PER_TEACHER_CALL}")
+            results["k6_launches_per_call"] = launches[1]
             sizes = [512] * 6 + [256] * 5 + [192] * 8 + [128] * 14
             if len(outs) != 33 or any(o.shape[:3] != (n, s, s) or o.dtype != dtype for o, s in zip(outs, sizes)):
                 raise AssertionError(f"mode_07 {tag} B={n}: outputs {[(tuple(o.shape), o.dtype) for o in outs]}")
@@ -840,13 +909,16 @@ def phase_body_teacher(torch, teacher_params, image) -> dict:
             with torch.no_grad():
                 ms = _time_ms(lambda: mode_07.compute_outputs(teacher, images, poses.to(dtype)), iters=5, warmup=1)
             results["ms"][f"{tag}_b{n}"] = ms
-            macs = _conv_macs(torch, teacher, lambda: mode_07.compute_outputs(teacher, images, poses.to(dtype)))
+            macs, sizes = _conv_macs(torch, teacher, lambda: mode_07.compute_outputs(teacher, images, poses.to(dtype)))
+            k6_sizes.update(sizes)
+            results["conv_macs"][f"{tag}_b{n}"] = macs
             flow = float(outs[3].float().abs().max()) * 512 / 2.0
-            print(f"mode_07 {tag:4s} B={n}: 33 finite outputs of the expected shapes, 5 K2 launches; {ms:.3f} ms a call; "
-                  f"{macs / 1e12:.3f} T conv multiply-adds, {2.0 * macs / ms / 1e9:.1f} TFLOP/s over the call; "
+            print(f"mode_07 {tag:4s} B={n}: 33 finite outputs of the expected shapes, 5 K2 and {K6_PER_TEACHER_CALL} K6 launches; {ms:.3f} ms a call; "
+                  f"{macs / 1e12:.3f} T conv multiply-adds (cuDNN's and K6's), {2.0 * macs / ms / 1e9:.1f} TFLOP/s over the call; "
                   f"largest upscaler flow {flow:.2f} px")
             if n == 1:
                 b1[tag] = (teacher, poses, [o.cpu() for o in outs])
+    results["k6_path"] = _k6_at_path_sizes(torch, k6_sizes)
     card_teacher, poses, card = b1["f32"]
     bf16_teacher, _, card16 = b1["bf16"]
 
@@ -1045,7 +1117,7 @@ def _body_gradient_check(torch, student, teacher32, image) -> dict:
 def phase_body_training(torch, workdir: str, config, teacher_params) -> dict:
     from tha4_tpu_torch.distiller import recipes
     from tha4_tpu_torch.distiller.pipeline import DistillationJobs
-    from tha4_tpu_torch.ops import cuda_poly_sin, cuda_siren, cuda_warp
+    from tha4_tpu_torch.ops import cuda_conv, cuda_poly_sin, cuda_siren, cuda_warp
     from tha4_tpu_torch.poser.modes import mode_07
     from tha4_tpu_torch.training import checkpoint as ckpt
     from tha4_tpu_torch.training.schedules import TrainingPhase, TrainingPhases
@@ -1069,7 +1141,8 @@ def phase_body_training(torch, workdir: str, config, teacher_params) -> dict:
     trainer = run.make_body_trainer(phases)
     trainer.cfg.log_every_seconds = 0.0
     counters = [cuda_warp.grid_sample_fast, cuda_warp.grid_sample_corners, cuda_poly_sin.poly_sin_forward,
-                cuda_poly_sin.poly_sin_backward, cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd]
+                cuda_poly_sin.poly_sin_backward, cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd,
+                cuda_conv.fused_affine_conv3_nchw]
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -1080,7 +1153,8 @@ def phase_body_training(torch, workdir: str, config, teacher_params) -> dict:
     print(f"body training: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, bf16 teacher and selective-f32 student, through "
           f"DistillationJobs.make_body_trainer(phases).train(), teacher mode_07 at full width (random): {wall:.2f} s; launches {launches}")
     expected = {"grid_sample_fast": 5 * TRAIN_STEPS, "grid_sample_corners": TRAIN_STEPS, "poly_sin_forward": 9 * TRAIN_STEPS,
-                "poly_sin_backward": 9 * TRAIN_STEPS, "sine_chain_t": 0, "sine_chain_t_bwd": 0}
+                "poly_sin_backward": 9 * TRAIN_STEPS, "sine_chain_t": 0, "sine_chain_t_bwd": 0,
+                "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * TRAIN_STEPS}
     if launches != expected or result["examples_seen"] != total:
         raise AssertionError(f"body training: expected {expected} launches and {total} examples, got {launches}, {result['examples_seen']}")
 
@@ -1124,6 +1198,250 @@ def phase_body_training(torch, workdir: str, config, teacher_params) -> dict:
     return {"launches": launches, "steps": steps, **grads, "resume_diff": max(diffs), "wall_s": wall}
 
 
+def _k6_inputs(torch, gen, n: int, h: int, w: int, cin: int, cout: int, cs: int, mode: int) -> tuple:
+    """Seeded K6 inputs on the card, f32 and NHWC: x, scale, shift, the HWIO
+    weight, bias, skip (mode 1: identity, 2: 1x1 from cs channels) and the
+    1x1 weight, None where the call has none."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    skip = randn(n, h, w, cs) if mode else None
+    skip_w = randn(cout, cs) / math.sqrt(cs) if mode == _K6_SKIP_CONV else None
+    scale = torch.rand((n, cin), generator=gen, device="cuda") + 0.5
+    shift = torch.rand((n, cin), generator=gen, device="cuda") - 0.5
+    return randn(n, h, w, cin), scale, shift, randn(3, 3, cin, cout) / math.sqrt(9 * cin), randn(cout) * 0.1, skip, skip_w
+
+
+def _k6_check(torch, inputs: tuple, dtype, bar: float, name: str) -> tuple:
+    """K6 against its plain version on ``inputs`` (``_k6_inputs``) in
+    ``dtype``, laid out as the U-Net passes them (NCHW views of NHWC
+    memory): two calls bit-identical, the error over max |plain| within
+    ``bar``.  Returns (the wrapper's arguments, its output, max-abs error,
+    that error over max |plain|)."""
+    from tha4_tpu_torch.ops import cuda_conv
+
+    x32, scale, shift, w32, bias, skip32, skip_w32 = inputs
+    x = x32.to(dtype).permute(0, 3, 1, 2)
+    sk = None if skip32 is None else skip32.to(dtype).permute(0, 3, 1, 2)
+    skw = None if skip_w32 is None else skip_w32.to(dtype)
+    args = (x, scale, shift, cuda_conv.to_w9(w32, dtype).contiguous(), bias, sk, skw)
+    first = cuda_conv.fused_affine_conv3_nchw(*args)
+    again = cuda_conv.fused_affine_conv3_nchw(*args)
+    ref = cuda_conv.fused_affine_conv3_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError(f"K6 {name} {dtype}: two calls differ")
+    err = float((first.float() - ref.float()).abs().max())
+    rel = err / float(ref.float().abs().max())
+    if first.dtype != dtype or first.shape != ref.shape or not rel <= bar:
+        raise AssertionError(f"K6 {name} {dtype}: error {rel} over max |plain| (bar {bar}), {first.dtype} {tuple(first.shape)}")
+    return args, first, err, rel
+
+
+def _k6_at_path_sizes(torch, sizes: dict) -> dict:
+    """K6 against its plain version at every size the teacher's U-Nets gave
+    it (``sizes``: (N, H, W, Cin, Cout, Cs, skip mode) -> calls per teacher
+    call), f32 and bf16, on seeded inputs at the bars of ``phase_k6``.  The
+    deep levels at B = 1 and the 16^2-64^2 ones at B = 8 make grids too small
+    for the card, which split the channel chunks among blocks and sum f32
+    partials in a second kernel: at least one size in each dtype must."""
+    from tha4_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    results = {"sizes": len(sizes), "f32_err": 0.0, "bf16_err": 0.0, "f32_rel": 0.0, "bf16_rel": 0.0,
+               "split_sizes": {"f32": 0, "bf16": 0}, "split_calls": {}}
+    for size in sorted(sizes):
+        n, h, w, cin, cout, cs, mode = size
+        inputs = _k6_inputs(torch, gen, *size)
+        line = []
+        for dtype, tag, bar in [(torch.float32, "f32", K6_F32_REL), (torch.bfloat16, "bf16", K6_BF16_REL)]:
+            splits = lib.tha4_affine_conv3_splits(*size, int(dtype == torch.bfloat16))
+            _, _, err, rel = _k6_check(torch, inputs, dtype, bar, f"N={n} {h}x{w} {cin}->{cout}")
+            results[f"{tag}_err"] = max(results[f"{tag}_err"], err)
+            results[f"{tag}_rel"] = max(results[f"{tag}_rel"], rel)
+            if splits > 1:
+                results["split_sizes"][tag] += 1
+                key = f"{tag}_b{n}"
+                results["split_calls"][key] = results["split_calls"].get(key, 0) + sizes[size]
+            line.append(f"{tag} {rel:.2e} ({splits} split{'s' if splits > 1 else ''})")
+        skip = ("", " +identity", f" +1x1({cs})")[mode]
+        print(f"K6 at a path size, N={n} {h}x{w} {cin}->{cout}{skip}, {sizes[size]} a call: error over max |plain| "
+              + ", ".join(line))
+    print(f"K6 at the {len(sizes)} sizes of the teacher's calls at B = 1 and {TRAIN_BATCH}: within the bars "
+          f"({K6_F32_REL:.0e} f32, {K6_BF16_REL:.0e} bf16; read {results['f32_rel']:.2e}, {results['bf16_rel']:.2e}); "
+          f"split grids at {results['split_sizes']} sizes, calls a teacher call {results['split_calls']}")
+    if not (results["split_sizes"]["f32"] and results["split_sizes"]["bf16"]):
+        raise AssertionError(f"K6: no path size takes the split grid {results['split_sizes']}")
+    return results
+
+
+def phase_k6(torch) -> dict:
+    """K6 at the five costliest shapes of the teacher's U-Nets, B = 8."""
+    from tha4_tpu_torch.ops import cuda_conv
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    n = TRAIN_BATCH
+    results = {"f32_err": 0.0, "bf16_err": 0.0, "f32_rel": 0.0, "bf16_rel": 0.0, "shapes": {}}
+    for name, size, cin, cout, skip in K6_SHAPES:
+        cs = 0 if skip is None else (cout if skip == "identity" else skip)
+        mode = 0 if skip is None else (1 if skip == "identity" else _K6_SKIP_CONV)
+        inputs = _k6_inputs(torch, gen, n, size, size, cin, cout, cs, mode)
+        row = {}
+        for dtype, tag, bar in [(torch.float32, "f32", K6_F32_REL), (torch.bfloat16, "bf16", K6_BF16_REL)]:
+            args, first, err, rel = _k6_check(torch, inputs, dtype, bar, name)
+            x = args[0]
+            # One PyTorch call of the convolution alone: cuDNN, channels last.
+            w_lib = inputs[3].permute(3, 2, 0, 1).to(dtype).contiguous(memory_format=torch.channels_last)
+            b_lib = inputs[4].to(dtype)
+            times = {
+                "ms": _time_ms(lambda: cuda_conv.fused_affine_conv3_nchw(*args), iters=10),
+                "plain_ms": _time_ms(lambda: cuda_conv.fused_affine_conv3_plain(*args), iters=10),
+                "library_ms": _time_ms(lambda: F.conv2d(x, w_lib, b_lib, padding=1), iters=10),
+            }
+            macs = n * size * size * cout * (9 * cin + (cs if mode == _K6_SKIP_CONV else 0))
+            bound = _bound(_nbytes(*args, first), 2.0 * macs, tag)
+            row[tag] = {"max_abs_err": err, "rel_err": rel, **times, **bound, "macs": macs}
+            results[f"{tag}_err"] = max(results[f"{tag}_err"], err)
+            results[f"{tag}_rel"] = max(results[f"{tag}_rel"], rel)
+            print(f"K6 {tag:4s} N={n} {name}: max_abs_err {err:.3e} ({rel:.2e} of max |plain|, bar {bar:.0e}); two calls "
+                  f"bit-identical; kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, F.conv2d alone "
+                  f"{times['library_ms']:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+                  f"{macs / 1e9:.1f} G multiply-adds, {_nbytes(*args, first) / 1e6:.0f} MB)")
+        results["shapes"][name] = row
+    before = cuda_conv.fused_affine_conv3_nchw.launches
+    try:
+        cuda_conv.fused_affine_conv3_nchw(args[0], args[1].clone().requires_grad_(), *args[2:])
+    except RuntimeError as e:
+        print(f"K6: a CUDA input that requires a gradient is refused ({e})")
+    else:
+        raise AssertionError("K6 took an input that requires a gradient")
+    if cuda_conv.fused_affine_conv3_nchw.launches != before:
+        raise AssertionError("K6 launched on an input that requires a gradient")
+    return results
+
+
+def phase_teacher_poser(torch, workdir: str, teacher_params) -> dict:
+    """The teacher poser at full width: the CLI from five .pt files, then
+    ``mode_07.create_poser`` and ``mode_12.create_poser``."""
+    import PIL.Image
+
+    from tha4_tpu_torch.charmodel.synthetic import synthetic_character_image
+    from tha4_tpu_torch.core import imagecodec
+    from tha4_tpu_torch.ops import cuda_conv, cuda_warp
+    from tha4_tpu_torch.poser.modes import mode_07, mode_12
+
+    files = {key: os.path.join(workdir, f"{key}.pt") for key in mode_07.NETWORK_KEYS}
+    for key, path in files.items():
+        torch.save(teacher_params[key], path)
+    png = os.path.join(workdir, "character.png")
+    PIL.Image.fromarray(synthetic_character_image(512, SEED), "RGBA").save(png)
+    module_args = [a for key, path in files.items() for a in ("--module-file", f"{key}={path}")]
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = [
+        ("f32", ["--output", os.path.join(workdir, "pose_f32.png")], [os.path.join(workdir, "pose_f32.png")]),
+        ("bf16", ["--bf16", "--output", os.path.join(workdir, "pose_bf16.png")], [os.path.join(workdir, "pose_bf16.png")]),
+        ("bf16 sweep", ["--bf16", "--sweep", "head_y", "--frames", "3", "--output-dir", os.path.join(workdir, "sweep")],
+         [os.path.join(workdir, "sweep", f"head_y_{i:03d}.png") for i in range(3)]),
+    ]
+    for tag, extra, pngs in runs:
+        cmd = [sys.executable, "-m", "tha4_tpu_torch.apps.full_manual_poser", *module_args, "--input", png,
+               "--set", "head_y=0.5", "--device", "cuda", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or not all(os.path.isfile(p) and PIL.Image.open(p).size == (512, 512) for p in pngs):
+            raise AssertionError(f"tha4-torch-pose {tag}: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+        print(f"tha4-torch-pose {tag} (five full-width .pt files, {seconds:.1f} s with the load): wrote {len(pngs)} PNG(s); "
+              + "; ".join(line.split("/")[-1] for line in proc.stdout.strip().splitlines()))
+
+    image = torch.from_numpy(imagecodec.load_image_hwc(png)).cuda()  # one object: the decomposer runs once
+    results = {"launches": {}, "ms": {}}
+    sizes = [512] * 6 + [256] * 5 + [192] * 8 + [128] * 14
+    for tag, dtype in [("bf16", torch.bfloat16), ("f32", torch.float32)]:
+        poser = mode_07.create_poser(module_file_names=files, compute_dtype=dtype, device="cuda")
+        poses = [_bench_pose(poser.pose_parameters, i) for i in range(POSES)]
+        per_call, outs = [], []
+        cuda_conv.fused_affine_conv3_nchw.launches = 0
+        cuda_warp.grid_sample_fast.launches = 0
+        for pose in poses:
+            before = (cuda_conv.fused_affine_conv3_nchw.launches, cuda_warp.grid_sample_fast.launches)
+            outs.append(poser.get_posing_outputs(image, pose))
+            per_call.append((cuda_conv.fused_affine_conv3_nchw.launches - before[0], cuda_warp.grid_sample_fast.launches - before[1]))
+        torch.cuda.synchronize()
+        launches = {"fused_affine_conv3_nchw": cuda_conv.fused_affine_conv3_nchw.launches,
+                    "grid_sample_fast": cuda_warp.grid_sample_fast.launches}
+        results["launches"][tag] = launches
+        if any(c != (K6_PER_TEACHER_CALL, 5) for c in per_call) or poser.prologue_cache_misses != 1:
+            raise AssertionError(f"mode_07.create_poser {tag}: (K6, K2) launches per call {per_call}, "
+                                 f"prologue cache misses {poser.prologue_cache_misses} (expected 1)")
+        for o in outs:
+            if [tuple(t.shape) for t in o] != [(1, s, s, t.shape[3]) for s, t in zip(sizes, o)] or len(o) != 33:
+                raise AssertionError(f"mode_07.create_poser {tag}: outputs {[tuple(t.shape) for t in o]}")
+            if not all(t.dtype == torch.float32 and t.device.type == "cuda" and bool(torch.isfinite(t).all()) for t in o):
+                raise AssertionError(f"mode_07.create_poser {tag}: an output is not finite f32 on the card")
+        line = (f"mode_07.create_poser {tag}: {POSES} poses of one image, 33 finite f32 outputs each, the decomposer run once "
+                f"(prologue cache misses {poser.prologue_cache_misses}); K6 and K2 launches per call {per_call[0]}")
+        if tag == "f32":
+            # cuDNN's default algorithms are not all deterministic: two runs of
+            # the same teacher may differ by a rounding, which the random
+            # full-width cascade carries to ~1e-4.  So the poser is held
+            # against compute_outputs in cuDNN's deterministic mode, on a new
+            # image object (the prologue runs again, in that mode too).
+            pose = torch.from_numpy(poses[-1])[None].cuda()
+            with torch.no_grad():
+                repeat = [mode_07.compute_outputs(poser.params, image[None], pose) for _ in range(2)]
+            nondeterministic = max(float((a - b).abs().max()) for a, b in zip(*repeat))
+            torch.backends.cudnn.deterministic = True
+            try:
+                fresh = image.clone()
+                got = poser.get_posing_outputs(fresh, poses[-1])
+                with torch.no_grad():
+                    inline = mode_07.compute_outputs(poser.params, fresh[None], pose)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            diff = max(float((a - b).abs().max()) for a, b in zip(got, inline))
+            line += (f"; against mode_07.compute_outputs of the same teacher on the card (cuDNN deterministic): max abs "
+                     f"diff {diff:.3e} (bar {POSER_F32_ATOL:.0e}); two compute_outputs calls in cuDNN's default mode "
+                     f"differ by {nondeterministic:.3e}")
+            if not diff <= POSER_F32_ATOL:
+                raise AssertionError(f"mode_07.create_poser f32: {diff} from compute_outputs")
+        print(line)
+
+        def pose_once(i=[0]):
+            poser.get_posing_outputs(image, poses[i[0] % POSES])
+            i[0] += 1
+        for _ in range(2):
+            pose_once()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            pose_once()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1000.0)
+        results["ms"][tag] = statistics.median(times)
+        print(f"mode_07.create_poser {tag}: {results['ms'][tag]:.3f} ms per pose at B=1 (median of 10, host clock to "
+              f"synchronize, image on the card, prologue cached)")
+        del poser, outs
+        torch.cuda.empty_cache()
+
+    face = mode_12.create_poser(module_file_names={k: files[k] for k in mode_12.NETWORK_KEYS}, compute_dtype=torch.bfloat16)
+    cuda_conv.fused_affine_conv3_nchw.launches = 0
+    cuda_warp.grid_sample_fast.launches = 0
+    outs = face.get_posing_outputs(image, _bench_pose(face.pose_parameters, 0))
+    torch.cuda.synchronize()
+    launches = (cuda_conv.fused_affine_conv3_nchw.launches, cuda_warp.grid_sample_fast.launches)
+    shapes = [tuple(t.shape[:3]) for t in outs]
+    if shapes != [(1, s, s) for s in [192] * 8 + [128] * 14] or launches != (0, 2) or face.prologue_cache_misses:
+        raise AssertionError(f"mode_12.create_poser: outputs {shapes}, (K6, K2) launches {launches}")
+    if not all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in outs):
+        raise AssertionError("mode_12.create_poser: an output is not finite f32")
+    print(f"mode_12.create_poser bf16: 22 finite f32 outputs of the expected shapes, (K6, K2) launches {launches}, no prologue")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1152,6 +1470,7 @@ def main() -> int:
     k3 = phase_k3(torch)
     with torch.inference_mode():
         k5 = phase_poly_sin(torch)
+    k6 = phase_k6(torch)  # grad mode on: it also checks that K6 refuses an input that needs a gradient
     with tempfile.TemporaryDirectory(prefix="chip_smoke_body_") as workdir:
         from tha4_tpu_torch.charmodel.synthetic import random_teacher_07, write_distiller_inputs
         from tha4_tpu_torch.core import imagecodec
@@ -1160,10 +1479,13 @@ def main() -> int:
         config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, "distill"), seed=SEED, batch_size=TRAIN_BATCH))
         teacher_params = random_teacher_07(torch.Generator().manual_seed(SEED + 8))
         image = torch.from_numpy(imagecodec.load_image_hwc(config.character_image_file_name))[None].cuda()
+        poser = phase_teacher_poser(torch, workdir, teacher_params)
         body_teacher = phase_body_teacher(torch, teacher_params, image)
         body = phase_body_training(torch, workdir, config, teacher_params)
 
     k5_mixed = k5["f32->bf16"]
+    k6_main = k6["shapes"][K6_MAIN_SHAPE]
+    k6_path = body_teacher["k6_path"]
     kernels = {
         "kernels": [
             {
@@ -1233,8 +1555,32 @@ def main() -> int:
                 "ms_f32": k5["f32"]["bwd"], "plain_ms_f32": k5["f32"]["plain_bwd"], "ms_bf16": k5["bf16"]["bwd"],
                 "timed": "(8, 512^2, 90) f32 a, bf16 g -> f32 da; launches from the body training run",
             },
+            {
+                "name": "affine_silu_conv3", "route": "cuda", "source": "tha4_tpu_torch/csrc/affine_conv3.cu",
+                "replaces": "tha4_tpu/ops/pallas_conv.py:174",
+                "launches": sum(v["fused_affine_conv3_nchw"] for v in poser["launches"].values()),
+                "max_abs_err": max(k6["f32_err"], k6_path["f32_err"]), "ms": k6_main["bf16"]["ms"],
+                "plain_ms": k6_main["bf16"]["plain_ms"],
+                "bound_ms": k6_main["bf16"]["bound_ms"], "bound_by": k6_main["bf16"]["bound_by"],
+                "library_ms": k6_main["bf16"]["library_ms"],
+                "max_abs_err_bf16": max(k6["bf16_err"], k6_path["bf16_err"]),
+                "max_rel_err": max(k6["f32_rel"], k6_path["f32_rel"]), "max_rel_err_bf16": max(k6["bf16_rel"], k6_path["bf16_rel"]),
+                "path_sizes_checked": k6_path["sizes"], "path_split_sizes": k6_path["split_sizes"],
+                "path_split_calls": k6_path["split_calls"],
+                "ms_f32": k6_main["f32"]["ms"], "plain_ms_f32": k6_main["f32"]["plain_ms"],
+                "bound_ms_f32": k6_main["f32"]["bound_ms"], "library_ms_f32": k6_main["f32"]["library_ms"],
+                "launches_body_teacher_call": body_teacher["k6_launches_per_call"],
+                "launches_body_training": body["launches"]["fused_affine_conv3_nchw"],
+                "shapes": k6["shapes"],
+                "timed": f"N=8, {K6_MAIN_SHAPE}, bf16; *_f32 in f32; every shape in shapes; errors also over every size of "
+                         "the teacher's calls at B = 1 and 8 (path_*: sizes checked, those on the split grid, their calls "
+                         "a teacher call); library: F.conv2d alone "
+                         "(channels last, cuDNN); launches: the teacher poser's 4 poses in bf16 and in f32 (K7, "
+                         "tha4_tpu/ops/pallas_packed_conv.py:142, has K6 as its counterpart)",
+            },
         ],
         "frame_ms": main_path["ms"], "train_step_ms": training["steps"], "body_teacher_ms": body_teacher["ms"],
+        "teacher_pose_ms": poser["ms"],
         "body_train_step_ms": body["steps"], "build_s": build_s, "card": card,
     }
     print(json.dumps(kernels))

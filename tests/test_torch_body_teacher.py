@@ -182,6 +182,36 @@ def test_unet_matches_jax(rng, new_order):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=UNET_ATOL)
 
 
+@pytest.mark.parametrize("new_order", [True, False])
+def test_bf16_unet_is_as_close_to_f32_as_jax_bf16(rng, new_order):
+    """The port's bf16 U-Net (K6's one rounding per fused conv, where JAX's
+    plain chain rounds after every step) against JAX's f32 U-Net: its RMS
+    error at most JAX's own bf16 U-Net's, its largest error within 1.5x
+    JAX's (a cascade's largest error lands on one pixel or another: read
+    0.88x / 0.90x here, 1.36x on other inputs; RMS 0.81x / 0.76x)."""
+    jcfg, cfg = _unet_cfgs(new_order)
+    net = _randomize(unet.Unet(cfg), 3)
+    params = _jax(jtw.convert_unet(_np_sd(net.state_dict()), jcfg))
+    x = rng.standard_normal((2, 64, 64, 4)).astype(np.float32)
+    t = np.array([[0.0], [3.7]], np.float32)
+    pose = rng.uniform(-1, 1, (2, 6)).astype(np.float32)
+    addition = (0.1 * rng.standard_normal((2, 64, 64, 8))).astype(np.float32)
+    run = jax.jit(functools.partial(junet.apply, jcfg))
+    ref = np.asarray(run(params, *(jnp.asarray(a) for a in (x, t, pose, addition))))
+    b16 = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    jax16 = np.asarray(run(params, b16(x), jnp.asarray(t), jnp.asarray(pose), b16(addition)).astype(jnp.float32))
+    for m in net.modules():  # the bf16 teacher's storage (Teacher.freeze)
+        if isinstance(m, nn.Conv2d):
+            m.to(torch.bfloat16)
+    with torch.no_grad():
+        ours = net(torch.from_numpy(x).bfloat16(), torch.from_numpy(t), torch.from_numpy(pose), torch.from_numpy(addition).bfloat16())
+    assert ours.dtype == torch.bfloat16
+    ours = ours.float().numpy()
+    rms = lambda d: float(np.sqrt(np.mean(d * d)))
+    assert rms(ours - ref) <= rms(jax16 - ref)
+    assert np.abs(ours - ref).max() <= 1.5 * np.abs(jax16 - ref).max()
+
+
 @pytest.fixture(scope="module")
 def teacher_run():
     """The tiny teacher from ``random_teacher_07`` (its flows scaled up to a

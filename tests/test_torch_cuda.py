@@ -23,6 +23,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # the plain versions' convolutions in full f32
     return torch.device("cuda")
 
 
@@ -219,3 +220,83 @@ def test_body_student_step_launches_poly_sin_and_k3(card):
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [9, 9, 1, 0, 0, 0]
     assert student.last_linear.weight.grad[0:2].abs().max() > 0
+
+
+def _affine_conv_case(seed, n, cin, cout, h, w, skip, dtype, device):
+    """K6's inputs: x, skip channels last; a shift of 1-2 so that SiLU(shift)
+    is far from 0 and zero padding before the activation would show."""
+    from tha4_tpu_torch.ops import cuda_conv
+
+    rng = np.random.default_rng(seed)
+    cl = lambda a: torch.from_numpy(a.astype(np.float32)).to(device, dtype).permute(0, 3, 1, 2)
+    x = cl(rng.standard_normal((n, h, w, cin)))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, (n, cin)).astype(np.float32)).to(device)
+    shift = torch.from_numpy(rng.uniform(1.0, 2.0, (n, cin)).astype(np.float32)).to(device)
+    w9 = cuda_conv.to_w9(torch.from_numpy((rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)), dtype).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(device)
+    skip_t = skip_w = None
+    if skip == "identity":
+        skip_t = cl(rng.standard_normal((n, h, w, cout)))
+    elif skip.startswith("conv"):
+        cs = int(skip[4:])
+        skip_t = cl(rng.standard_normal((n, h, w, cs)))
+        skip_w = torch.from_numpy((rng.standard_normal((cout, cs)) / np.sqrt(cs)).astype(np.float32)).to(device, dtype)
+    return x, scale, shift, w9, bias, skip_t, skip_w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,cin,cout,h,w,skip", [
+    (1, 32, 7, 24, 40, "none"),         # the U-Net's last conv: Cout 7, a partial Cout block
+    (2, 96, 32, 16, 16, "none"),        # an up level's conv0 input: 96 channels
+    (1, 512, 256, 16, 16, "conv512"),   # the deepest up level: Cin 512 in chunks, four Cout blocks, 1x1 skip
+    (1, 64, 64, 8, 8, "identity"),      # a tile larger than the image
+    (2, 24, 40, 13, 21, "identity"),    # border tiles, H and W not multiples of the tile, a partial chunk
+    (1, 12, 16, 13, 21, "conv20"),      # channel counts that are not multiples of 8 (scalar loads)
+])
+def test_affine_conv3_kernel_matches_plain(card, dtype, n, cin, cout, h, w, skip):
+    """K6 against its plain version, max-abs error over max |plain|: 1e-4 in
+    f32 (FMA sums in another order), 1e-2 in bf16 (the same bf16 operands,
+    one final rounding, and an activation rounded to the other bf16
+    neighbour now and then); two calls bit-identical."""
+    from tha4_tpu_torch.ops import cuda_conv
+
+    args = _affine_conv_case(cin * 1000 + cout, n, cin, cout, h, w, skip, dtype, card)
+    before = cuda_conv.fused_affine_conv3_nchw.launches
+    first = cuda_conv.fused_affine_conv3_nchw(*args)
+    again = cuda_conv.fused_affine_conv3_nchw(*args)
+    torch.cuda.synchronize()
+    assert cuda_conv.fused_affine_conv3_nchw.launches == before + 2
+    ref = cuda_conv.fused_affine_conv3_plain(*args)
+    assert first.dtype == dtype and first.shape == ref.shape == (n, cout, h, w)
+    assert first.permute(0, 2, 3, 1).is_contiguous()
+    assert torch.equal(first, again)
+    err = float((first.float() - ref.float()).abs().max()) / float(ref.float().abs().max())
+    assert err <= (1e-4 if dtype == torch.float32 else 1e-2), err
+
+
+def test_affine_conv3_refuses_what_the_kernel_does_not_take(card):
+    from tha4_tpu_torch.ops import cuda_conv
+
+    x, scale, shift, w9, bias, _, _ = _affine_conv_case(0, 1, 16, 8, 8, 8, "none", torch.float32, card)
+    before = cuda_conv.fused_affine_conv3_nchw.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        cuda_conv.fused_affine_conv3_nchw(x, scale.requires_grad_(), shift, w9, bias)
+    scale = scale.detach()
+    with pytest.raises(ValueError, match="channels last"):
+        cuda_conv.fused_affine_conv3_nchw(x.contiguous(), scale, shift, w9, bias)
+    with pytest.raises(ValueError, match="identity skip"):
+        cuda_conv.fused_affine_conv3_nchw(x, scale, shift, w9, bias, x)
+    assert cuda_conv.fused_affine_conv3_nchw.launches == before
+
+
+def test_affine_conv3_splits_only_small_grids(card):
+    """A grid that would not fill the card (the deep levels' few tiles)
+    splits its channel chunks among blocks; a 512^2 batch does not; sizes
+    the kernel refuses give 0."""
+    from tha4_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library()
+    assert lib.tha4_affine_conv3_splits(1, 16, 16, 512, 256, 512, 2, 1) > 1
+    assert lib.tha4_affine_conv3_splits(1, 16, 16, 512, 256, 512, 2, 0) > 1
+    assert lib.tha4_affine_conv3_splits(8, 512, 512, 64, 64, 64, 1, 1) == 1
+    assert lib.tha4_affine_conv3_splits(1, 16, 16, 512, 256, 512, 3, 1) == 0

@@ -11,12 +11,13 @@ _SCRIPT = r"""
 import importlib, pkgutil, sys
 import tha4_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tha4_tpu_torch.__path__, "tha4_tpu_torch.")]
-# The face- and body-distillation slices' modules are among them.
+# The face- and body-distillation and teacher-poser slices' modules are among them.
 needed = {"ops.nn", "models.encoder_decoder", "models.eyebrow", "models.face_morpher", "poser.modes.mode_12",
           "training.losses", "training.schedules", "training.checkpoint", "training.trainer",
           "distiller.config", "distiller.pose_dataset", "distiller.recipes", "distiller.pipeline",
           "ops.cuda_poly_sin", "ops.cuda_warp", "models.unet", "models.body_morpher", "models.upscaler",
-          "poser.modes.mode_07", "charmodel.synthetic", "convert.export_torch"}
+          "poser.modes.mode_07", "charmodel.synthetic", "convert.export_torch",
+          "ops.cuda_conv", "poser.general_poser", "apps.full_manual_poser"}
 assert {"tha4_tpu_torch." + n for n in needed} <= set(names), sorted(needed - {n[len("tha4_tpu_torch."):] for n in names})
 for name in names:
     importlib.import_module(name)

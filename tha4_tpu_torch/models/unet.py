@@ -19,6 +19,18 @@ Parameters carry the reference ``state_dict`` keys that
 ``last.{0,2}``, ...).  Activations are NHWC; the convolutions see them as
 channels-last NCHW (``ops.nn.conv_nhwc``), cuDNN's fast layout.
 
+K6 (``ops.cuda_conv.fused_affine_conv3_nchw``) runs every 3x3 conv that
+follows a group norm and its SiLU directly: each ResBlock's ``conv1``
+(GN -> FiLM(t) -> FiLM(pose) -> SiLU -> conv1, plus the skip), the ``conv0``
+of every ``"same"`` ResBlock (GN -> SiLU -> conv0) and ``last``.  The norm
+and the FiLMs fold into one per-(n, c) scale and shift
+(``fold_groupnorm_film``), so they, the SiLU, the bias and the residual add
+cost no pass of their own; K6 rounds once, where the plain chain rounds
+after each step.  The ``conv0`` of ``"up"`` / ``"down"`` blocks (the
+resample sits between the SiLU and the conv), the first conv and the
+attention's 1x1s stay cuDNN's.  A shipped upscaler call launches K6 55
+times, a body morpher call 47 times.
+
 The JAX module's lane-packed flow (``_apply_packed_flow``,
 ``_fused_resblock*``, the ``probe`` cut) is TPU 128-lane packing and is left
 behind on purpose: channels-last is the GPU's form of the same layout.
@@ -34,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tha4_tpu_torch.ops import cuda_conv
 from tha4_tpu_torch.ops import nn as tnn
 from tha4_tpu_torch.ops import wide
 from tha4_tpu_torch.ops.resize import downsample_avg_2x, upsample_nearest_2x
@@ -89,15 +102,36 @@ def compute_timestep_embedding(t: torch.Tensor, out_channels: int) -> torch.Tens
     return emb
 
 
-def _scale_shift(x: torch.Tensor, scaleshift: torch.Tensor, condition_bias: float) -> torch.Tensor:
-    """x (N,H,W,C), scaleshift (N,2C): x * (bias + scale) + shift."""
-    scale, shift = scaleshift[:, None, None, :].chunk(2, dim=-1)
-    return x * (condition_bias + scale.to(x.dtype)) + shift.to(x.dtype)
+def _w9(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """``conv``'s 3x3 weight in K6's w9 layout and ``dtype``: the copy
+    ``Unet.store_w9`` keeps for a frozen network, else made from the weight
+    now (a weight that needs a gradient is passed on, for K6 to refuse)."""
+    w9 = getattr(conv, "w9", None)
+    if w9 is not None and w9.dtype == dtype:
+        return w9
+    return cuda_conv.to_w9(conv.weight.permute(2, 3, 1, 0), dtype)
+
+
+def _fold(norm: tnn.GroupNorm, x: torch.Tensor, film=(), condition_bias: float = 1.0):
+    """The group norm over NHWC ``x`` and the FiLMs after it as K6's per-(n, c)
+    scale and shift."""
+    return cuda_conv.fold_groupnorm_film(x.permute(0, 3, 1, 2), norm.num_groups, norm.weight, norm.bias, film,
+                                         condition_bias)
+
+
+def _affine_conv3(x: torch.Tensor, conv: nn.Conv2d, scale, shift, skip=None, skip_w=None, bias=None) -> torch.Tensor:
+    """K6 on NHWC tensors: conv(silu(x * scale + shift)) + bias [+ skip]."""
+    bias = wide(conv.bias) if bias is None else bias
+    skip = None if skip is None else skip.contiguous().permute(0, 3, 1, 2)
+    out = cuda_conv.fused_affine_conv3_nchw(x.contiguous().permute(0, 3, 1, 2), scale, shift, _w9(conv, x.dtype),
+                                            bias, skip, skip_w)
+    return out.permute(0, 2, 3, 1)
 
 
 class ResBlock(nn.Module):
     """GN -> SiLU -> [resample] -> conv0 -> GN -> FiLM(t) -> FiLM(pose) ->
-    SiLU -> conv1, plus the [resampled, 1x1-projected] input."""
+    SiLU -> conv1, plus the [resampled, 1x1-projected] input.  K6 runs conv1
+    with the skip, and conv0 where nothing is resampled."""
 
     def __init__(self, cin: int, cout: int, cond_channels: int, sampling: str = "same"):
         super().__init__()
@@ -112,16 +146,18 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond0: torch.Tensor, cond1: torch.Tensor, condition_bias: float) -> torch.Tensor:
         resample = {"same": lambda a: a, "up": upsample_nearest_2x, "down": downsample_avg_2x}[self.sampling]
-        h = F.silu(self.norm0(x))
-        h = tnn.conv_nhwc(self.conv0, resample(h))
-        h = self.norm1(h)
-        h = _scale_shift(h, self.cond0_layers(cond0), condition_bias)
-        h = _scale_shift(h, self.cond1_layers(cond1), condition_bias)
-        h = tnn.conv_nhwc(self.conv1, F.silu(h))
+        if self.sampling == "same":
+            h = _affine_conv3(x, self.conv0, *_fold(self.norm0, x))
+        else:
+            h = tnn.conv_nhwc(self.conv0, resample(F.silu(self.norm0(x))))
+        film = (self.cond0_layers(cond0).chunk(2, dim=-1), self.cond1_layers(cond1).chunk(2, dim=-1))  # (scale, shift) each
+        scale, shift = _fold(self.norm1, h, film, condition_bias)
         skip = resample(x)
-        if self.skip is not None:
-            skip = tnn.conv_nhwc(self.skip, skip)
-        return skip + h
+        if self.skip is None:
+            return _affine_conv3(h, self.conv1, scale, shift, skip)
+        # The 1x1 skip's bias joins conv1's.
+        skip_w = self.skip.weight[:, :, 0, 0].to(h.dtype)
+        return _affine_conv3(h, self.conv1, scale, shift, skip, skip_w, wide(self.conv1.bias) + wide(self.skip.bias))
 
 
 class AttentionBlock(nn.Module):
@@ -232,6 +268,19 @@ class Unet(nn.Module):
                 tnn.init_conv_(m.conv, "zero", gen)
         tnn.init_conv_(self.last[2], "zero", gen)
 
+    @torch.no_grad()
+    def store_w9(self) -> None:
+        """Keep each K6 conv's weight in w9 layout beside it, in the weight's
+        dtype and on its device, as a buffer outside the state dict, so that
+        a call does not lay it out anew.  For a frozen network only: a
+        later change to a weight does not reach its copy."""
+        convs = [self.last[2]]
+        for m in self.modules():
+            if isinstance(m, ResBlock):
+                convs += [m.conv1] + ([m.conv0] if m.sampling == "same" else [])
+        for conv in convs:
+            conv.register_buffer("w9", cuda_conv.to_w9(conv.weight.permute(2, 3, 1, 0)).contiguous(), persistent=False)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
                 first_conv_addition: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``first_conv_addition`` (N,S,S,model_channels) is added to the first
@@ -269,4 +318,4 @@ class Unet(nn.Module):
         assert not hs
 
         norm, _, last_conv = self.last
-        return tnn.conv_nhwc(last_conv, F.silu(norm(h)))
+        return _affine_conv3(h, last_conv, *_fold(norm, h))

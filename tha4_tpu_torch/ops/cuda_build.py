@@ -49,6 +49,11 @@ _SIGNATURES = {
     "tha4_poly_sin_forward": [_P, _P, _L, _I, _P],
     # a, g, da, n, dtypes, stream
     "tha4_poly_sin_backward": [_P, _P, _P, _L, _I, _P],
+    # n, h, w, cin, cout, cs, skip_mode, is_bf16
+    "tha4_affine_conv3_splits": [_I, _I, _I, _I, _I, _I, _I, _I],
+    # x, scale, shift, w9, bias, skip, skip_w, out, n, h, w, cin, cout, cs,
+    # skip_mode, is_bf16, workspace, stream
+    "tha4_affine_conv3_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

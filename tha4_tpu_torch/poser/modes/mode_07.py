@@ -19,18 +19,26 @@ network names (``init`` draws a seeded random set, ``load_params_from_torch``
 reads the files, ``convert.export_torch.teacher_07_state_dicts`` bridges the
 JAX package's); ``Teacher.from_params`` builds the modules.  The mode_12
 face teacher is the first three networks (``poser.modes.mode_12``).
+
+``create_poser`` is the teacher poser of the ``tha4-torch-pose`` CLI: a
+``GeneralPoser`` whose prologue is the eyebrow decomposer, cached per image
+object (the reference's cross-frame cache, mode_07.py:54-70), so that pose
+changes on one rest image skip network 1.  Direct ``compute_outputs``
+callers (the body distillation) run the decomposer inline.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from tha4_tpu_torch.models import body_morpher, eyebrow, face_morpher, upscaler
+from tha4_tpu_torch.models import body_morpher, eyebrow, face_morpher, unet, upscaler
 from tha4_tpu_torch.ops.resize import resize_bilinear
+from tha4_tpu_torch.poser.general_poser import GeneralPoser
 from tha4_tpu_torch.poser.modes.pose_parameters import NUM_EYEBROW_PARAMS, NUM_FACE_PARAMS
 
 KEY_EYEBROW_DECOMPOSER = "eyebrow_decomposer"
@@ -100,11 +108,15 @@ class Teacher(nn.Module):
         """A frozen label generator: no gradients, on ``device``, with the
         convolution weights stored in ``dtype`` once instead of cast per
         call.  Norm affines and linears stay f32, as in the JAX package (a
-        linear casts itself to its input's dtype)."""
+        linear casts itself to its input's dtype).  The U-Nets keep their K6
+        weights in its layout (``Unet.store_w9``)."""
         self.requires_grad_(False).eval().to(device)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 m.to(dtype)
+        for m in self.modules():
+            if isinstance(m, unet.Unet):
+                m.store_w9()
         return self
 
 
@@ -126,11 +138,19 @@ def load_params_from_torch(module_file_names: Optional[Dict[str, str]] = None, k
     return {key: load_torch_state_dict(path) for key, path in files.items()}
 
 
-def compute_face_outputs(teacher: nn.Module, image: torch.Tensor, pose: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def compute_decomposer_outputs(teacher: nn.Module, image: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The rest-image-only stage, cacheable across frames: the eyebrow
+    decomposer's 6 outputs."""
+    return tuple(teacher.eyebrow_decomposer(image[:, 64:192, 192:320, :]))
+
+
+def compute_face_outputs(teacher: nn.Module, image: torch.Tensor, pose: torch.Tensor,
+                         decomposer_outputs: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, ...]:
     """The first three networks: face (8) + combiner (8) + decomposer (6)
-    outputs, mode_12's 22."""
-    crop = image[:, 64:192, 192:320, :]
-    decomposer_outputs = teacher.eyebrow_decomposer(crop)
+    outputs, mode_12's 22.  ``decomposer_outputs``, where given, stand in
+    for the decomposer."""
+    if decomposer_outputs is None:
+        decomposer_outputs = compute_decomposer_outputs(teacher, image)
     combiner_outputs = teacher.eyebrow_morphing_combiner(
         decomposer_outputs[eyebrow.DECOMPOSER_BACKGROUND_LAYER_INDEX],
         decomposer_outputs[eyebrow.DECOMPOSER_EYEBROW_LAYER_INDEX],
@@ -143,9 +163,10 @@ def compute_face_outputs(teacher: nn.Module, image: torch.Tensor, pose: torch.Te
     return tuple(face_outputs) + tuple(combiner_outputs) + tuple(decomposer_outputs)
 
 
-def compute_outputs(teacher: Teacher, image: torch.Tensor, pose: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def compute_outputs(teacher: Teacher, image: torch.Tensor, pose: torch.Tensor,
+                    decomposer_outputs: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, ...]:
     """image (N,512,512,4) + pose (N,45), in the compute dtype -> 33 outputs."""
-    face_outputs = compute_face_outputs(teacher, image, pose)
+    face_outputs = compute_face_outputs(teacher, image, pose, decomposer_outputs)
     face_morphed_full = image.clone()
     face_morphed_full[:, 32:224, 160:352, :] = face_outputs[face_morpher.OUTPUT_IMAGE_INDEX].to(image.dtype)
     face_morphed_half = resize_bilinear(face_morphed_full, (256, 256))
@@ -156,3 +177,39 @@ def compute_outputs(teacher: Teacher, image: torch.Tensor, pose: torch.Tensor) -
     coarse_grid = resize_bilinear(body_outputs[body_morpher.INDEX_GRID_CHANGE], (512, 512))
     upscaler_outputs = teacher.upscaler(face_morphed_full, coarse_posed, coarse_grid, rotation_pose)
     return tuple(upscaler_outputs) + (face_morphed_full,) + tuple(body_outputs) + face_outputs
+
+
+def create_poser(
+    module_file_names: Optional[Dict[str, str]] = None,
+    eyebrow_morphed_image_index: int = eyebrow.COMBINER_EYEBROW_IMAGE_NO_COMBINE_ALPHA_INDEX,
+    default_output_index: int = 0,
+    compute_dtype: torch.dtype = torch.float32,
+    params: Optional[Params] = None,
+    cfg: Optional[TeacherConfig] = None,
+    subrect=None,
+    device="cuda",
+) -> GeneralPoser:
+    """The teacher poser (reference create_poser, mode_07.py:272-315): the
+    five networks from ``module_file_names`` (the shipped files by default),
+    or from ``params`` (e.g. a random init), loaded at the first pose and
+    frozen in ``compute_dtype`` on ``device``; the eyebrow decomposer is its
+    prologue, cached per image object."""
+    cfg = cfg or TeacherConfig()
+    if eyebrow_morphed_image_index != cfg.eyebrow_morphed_image_index:
+        cfg = dataclasses.replace(cfg, eyebrow_morphed_image_index=eyebrow_morphed_image_index)
+
+    def load() -> Teacher:
+        p = params if params is not None else load_params_from_torch(module_file_names)
+        return Teacher.from_params(p, cfg).freeze(compute_dtype, device)
+
+    return GeneralPoser(
+        image_size=512,
+        output_length=OUTPUT_LENGTH,
+        params_loader=load,
+        run_fn=lambda teacher, image, pose, *dec: compute_outputs(teacher, image, pose, dec or None),
+        default_output_index=default_output_index,
+        compute_dtype=compute_dtype,
+        subrect=subrect,
+        prologue_fn=compute_decomposer_outputs,
+        device=device,
+    )

@@ -1,26 +1,47 @@
-"""Profile one distillation step on one GPU: device time by kernel, busy share.
+"""Profile or time one distillation step on one GPU.
 
     python -m tha4_tpu_torch.tools.profile_step [--student body|face] [--dtype bf16|f32]
                                                 [--steps 5]
+    python tha4_tpu_torch/tools/profile_step.py --time [--root DIR] [--label NAME]
 
 Builds the shipped teacher at full width with seeded random weights (mode_07
 from ``charmodel.synthetic.random_teacher_07`` for the body student, mode_12
-for the face student), the shipped student and the synthetic character, runs
-two warm-up steps of the recipe at batch 8 (``recipes.make_body_distill_step``
-with the selective-f32 student in bf16, or ``make_face_distill_step``), then
-``--steps`` steps under ``torch.profiler`` with the poses already on the card.
-Prints one line per kernel group and the busiest kernels, each as device ms
-per step and launches per step, then a JSON summary: device busy ms per step
-(the sum of kernel times: one stream, so kernels do not overlap), wall ms per
-step under the profiler, and their ratio, the busy share.  Needs a CUDA
-device; there is no CPU fallback.
+for the face student), the shipped student and the synthetic character.
+
+Profiling (the default) runs two warm-up steps of the recipe at batch 8
+(``recipes.make_body_distill_step`` with the selective-f32 student in bf16,
+or ``make_face_distill_step``), then ``--steps`` steps under
+``torch.profiler`` with the poses already on the card.  It prints one line
+per kernel group and the busiest kernels, each as device ms per step and
+launches per step, then a JSON summary: device busy ms per step (the sum of
+kernel times: one stream, so kernels do not overlap), wall ms per step under
+the profiler, and their ratio, the busy share.
+
+``--time`` prints one JSON line for the body path instead:
+
+* ``teacher_ms``: one ``mode_07.compute_outputs`` call at B = 1 and 8, bf16
+  and f32, the median of 20 CUDA-event timings after 2 warm-up calls;
+* ``body_step_ms``: one bf16 body step at B = 8, host clock to
+  ``torch.cuda.synchronize()``, the median of 10 after 3 warm-up steps;
+  ``body_teacher_ms``, the CUDA-event median of its teacher labels;
+* ``k6_launches_per_call`` where the tree has K6 (``ops.cuda_conv``).
+
+``--root`` imports ``tha4_tpu_torch`` from another checkout (run the file
+by its path then, not with ``-m``), so that one command can time two
+trees on one card in turns, for example a parent commit unpacked by ``git
+archive`` and this one (parent, change, change, parent), through the APIs
+both trees have.  Needs a CUDA device; there is no CPU fallback.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
+import os
+import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -30,6 +51,7 @@ import torch
 BATCH = 8
 SEED = 20261016
 TOP = 15  # the busiest kernels listed
+TEACHER_ITERS = 20  # --time: CUDA-event timings a teacher median (B = 1 calls spread by +-20 %)
 # Kernel name fragments -> group, first match wins.
 GROUPS = (
     ("K1 sine_chain", ("sine_chain_kernel",)),
@@ -37,6 +59,7 @@ GROUPS = (
     ("K2 warp", ("grid_sample_kernel",)),
     ("K3 warp corners", ("grid_sample_corners_kernel",)),
     ("K5 poly_sin", ("poly_sin_",)),
+    ("K6 affine_silu_conv3", ("affine_silu_conv3",)),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "nchwToNhwc", "nhwcToNchw", "xmma")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "Kernel2", "sm90_")),
     ("reduction", ("reduce",)),
@@ -51,8 +74,9 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _build_step(student_kind: str, dtype: torch.dtype, workdir: str):
-    """(step() -> None) running one optimizer step of the chosen recipe."""
+def _setup(student_kind: str, dtype: torch.dtype, workdir: str):
+    """(teacher, image, poses, step()) for one optimizer step of the chosen
+    recipe; ``step()`` takes the next of four pose batches on the card."""
     from tha4_tpu_torch.charmodel.synthetic import random_teacher_07, write_distiller_inputs
     from tha4_tpu_torch.core import imagecodec
     from tha4_tpu_torch.distiller import recipes
@@ -89,7 +113,101 @@ def _build_step(student_kind: str, dtype: torch.dtype, workdir: str):
         run(optimizer, poses[count[0] % len(poses)])
         count[0] += 1
 
-    return step
+    return teacher, image, poses, step
+
+
+def _event_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _time_body(label: str) -> dict:
+    """The ``--time`` line: the mode_07 teacher and the bf16 body step."""
+    from tha4_tpu_torch.distiller import recipes
+    from tha4_tpu_torch.poser.modes import mode_07
+
+    k6 = None
+    if importlib.util.find_spec("tha4_tpu_torch.ops.cuda_conv") is not None:
+        from tha4_tpu_torch.ops import cuda_conv
+
+        k6 = cuda_conv.fused_affine_conv3_nchw
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    result = {"label": label, "card": card, "teacher_ms": {}}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
+            teacher, image, poses, step = _setup("body", dtype, workdir)
+        for n in (1, BATCH):
+            images, p = image.to(dtype).expand(n, *image.shape[1:]), poses[0][:n].to(dtype)
+            with torch.no_grad():
+                if k6 is not None:
+                    k6.launches = 0
+                    mode_07.compute_outputs(teacher, images, p)
+                    result["k6_launches_per_call"] = k6.launches
+                result["teacher_ms"][f"{tag}_b{n}"] = _event_ms(lambda: mode_07.compute_outputs(teacher, images, p), TEACHER_ITERS)
+        if dtype == torch.float32:
+            del teacher, step
+            torch.cuda.empty_cache()
+    times = []
+    for _ in range(13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    result["body_step_ms"] = statistics.median(times[3:])
+    with torch.no_grad():
+        result["body_teacher_ms"] = _event_ms(lambda: recipes.body_teacher_targets(teacher, image, poses[0], torch.bfloat16), 5)
+    return result
+
+
+def _profile(student: str, dtype: torch.dtype, steps: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
+        step = _setup(student, dtype, workdir)[3]
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / steps
+        by_name[e.name][1] += 1
+    by_group = collections.defaultdict(lambda: [0.0, 0])
+    for name, (ms, n) in by_name.items():
+        by_group[_group(name)][0] += ms
+        by_group[_group(name)][1] += n
+    busy = sum(ms for ms, _ in by_name.values())
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"{student} step, {tag}, B={BATCH}, {steps} steps on {torch.cuda.get_device_name(0)}:")
+    for group, (ms, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {group:24s} {ms:9.3f} ms/step  {n / steps:7.1f} launches/step  {100.0 * ms / busy:5.1f} %")
+    print(f"  busiest {TOP} kernels:")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
+        print(f"    {ms:9.3f} ms/step  {n / steps:6.1f}/step  {name[:110]}")
+    return {
+        "student": student, "dtype": tag, "batch": BATCH, "steps": steps,
+        "device_busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms,
+        "kernels_per_step": len(kernels) / steps,
+        "groups_ms": {g: v[0] for g, v in by_group.items()}, "device": torch.cuda.get_device_name(0),
+    }
 
 
 def main(argv=None) -> int:
@@ -97,49 +215,26 @@ def main(argv=None) -> int:
     parser.add_argument("--student", choices=("body", "face"), default="body")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--time", action="store_true", help="time the body path instead of profiling a step")
+    parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                        help="the checkout whose tha4_tpu_torch runs (default: the one this file lies in)")
+    parser.add_argument("--label", default=None)
     args = parser.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import tha4_tpu_torch
+
+    if os.path.dirname(os.path.dirname(os.path.abspath(tha4_tpu_torch.__file__))) != root:
+        raise SystemExit(f"profile_step: imported {tha4_tpu_torch.__file__}, not the package under {root}")
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    from torch.profiler import ProfilerActivity, profile
-
-    with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
-        step = _build_step(args.student, dtype, workdir)
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.steps):
-                step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / args.steps
-        by_name[e.name][1] += 1
-    by_group = collections.defaultdict(lambda: [0.0, 0])
-    for name, (ms, n) in by_name.items():
-        by_group[_group(name)][0] += ms
-        by_group[_group(name)][1] += n
-    busy = sum(ms for ms, _ in by_name.values())
-    print(f"{args.student} step, {args.dtype}, B={BATCH}, {args.steps} steps on {torch.cuda.get_device_name(0)}:")
-    for group, (ms, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {group:24s} {ms:9.3f} ms/step  {n / args.steps:7.1f} launches/step  {100.0 * ms / busy:5.1f} %")
-    print(f"  busiest {TOP} kernels:")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
-        print(f"    {ms:9.3f} ms/step  {n / args.steps:6.1f}/step  {name[:110]}")
-    summary = {
-        "student": args.student, "dtype": args.dtype, "batch": BATCH, "steps": args.steps,
-        "device_busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms,
-        "kernels_per_step": len(kernels) / args.steps,
-        "groups_ms": {g: v[0] for g, v in by_group.items()}, "device": torch.cuda.get_device_name(0),
-    }
+    if args.time:
+        summary = _time_body(args.label or root)
+    else:
+        summary = _profile(args.student, torch.bfloat16 if args.dtype == "bf16" else torch.float32, args.steps)
     print(json.dumps(summary))
     return 0
 
