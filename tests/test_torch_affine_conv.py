@@ -306,3 +306,156 @@ def test_cached_w9_follows_the_weight():
         if m is not conv:
             assert torch.equal(m.w9, cuda_conv.to_w9(m.weight.permute(2, 3, 1, 0)))
     assert set(net.state_dict()) == keys
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,cs,bn", [(24, 7, 0, 32), (40, 70, 20, 64), (16, 300, 0, 256)])
+def test_device_weight_layout_puts_each_weight_where_k6_reads_it(dtype, cin, cout, cs, bn):
+    """K6's device layout, read back with the kernel's own indexing
+    (csrc/affine_conv3.cu chunk_weights): per Cout block, chunk q of the
+    conv at q * 9 * CK * BN, then the 1x1 skip's chunks; inside a chunk
+    [tap][CK / 8][BN][8] in bf16, [tap][CK][BN] in f32; zeros past Cin, Cs
+    and Cout."""
+    ck = 16
+    gen = torch.Generator().manual_seed(cin + cout)
+    w9 = torch.randn((cout, 9 * cin), generator=gen).to(dtype)
+    skip_w = torch.randn((cout, cs), generator=gen).to(dtype) if cs else None
+    flat = cuda_conv.device_weight_layout(w9, skip_w, bn, ck, dtype)
+    qc, qs, nb = -(-cin // ck), -(-cs // ck), -(-cout // bn)
+    assert flat.dtype == dtype and flat.shape == (nb * (9 * qc + qs) * ck * bn,)
+
+    def at(block, chunk_offset, t, ci, n):
+        if dtype == torch.bfloat16:
+            inner = ((t * (ck // 8) + ci // 8) * bn + n) * 8 + ci % 8
+        else:
+            inner = (t * ck + ci) * bn + n
+        return flat[block * (9 * qc + qs) * ck * bn + chunk_offset + inner]
+
+    rng = np.random.default_rng(cin)
+    for co, ci, t in zip(rng.integers(0, nb * bn, 60), rng.integers(0, qc * ck, 60), rng.integers(0, 9, 60)):
+        block, n = divmod(int(co), bn)
+        q, cq = divmod(int(ci), ck)
+        want = w9[co, t * cin + ci] if co < cout and ci < cin else 0.0
+        assert float(at(block, q * 9 * ck * bn, int(t), cq, n)) == float(want)
+    for co, ci in zip(rng.integers(0, nb * bn, 30), rng.integers(0, max(qs, 1) * ck, 30)):
+        if not cs:
+            break
+        block, n = divmod(int(co), bn)
+        s, cq = divmod(int(ci), ck)
+        want = skip_w[co, ci] if co < cout and ci < cs else 0.0
+        assert float(at(block, (qc * 9 + s) * ck * bn, 0, cq, n)) == float(want)
+
+
+def test_device_weight_layout_is_made_once_per_weight_and_follows_it(monkeypatch):
+    """K6's device layout.  Unfrozen, the U-Net passes none, so the wrapper
+    lays out the weights as they are at each call; frozen
+    (``Unet.store_w9``), every K6 conv keeps one, made from its w9 (conv1
+    of a block with a 1x1 skip: and the skip's matrix) at the kernel's BN
+    for its dtype, outside the state dict, and passes it at every call."""
+    cfg = unet.UnetConfig(in_channels=4, out_channels=7, model_channels=8, level_channel_multipliers=(1, 2),
+                          level_use_attention=(False, False), num_res_blocks_per_level=1, num_middle_res_blocks=1,
+                          cond_input_channels=6, cond_internal_channels=16)
+    net = unet.Unet(cfg).requires_grad_(False)
+    keys = set(net.state_dict())
+    seen = []
+    real = cuda_conv.fused_affine_conv3_nchw
+    monkeypatch.setattr(cuda_conv, "fused_affine_conv3_nchw", lambda *a: seen.append(a) or real(*a))
+    x, t, cond = torch.rand((1, 8, 8, 4)), torch.zeros((1, 1)), torch.rand((1, 6))
+    net(x, t, cond)
+    assert seen and all(a[7] is None for a in seen)
+    net.store_w9()
+    seen.clear()
+    net(x, t, cond)
+    convs = [m for m in net.modules() if getattr(m, "k6_layout", None) is not None]
+    assert len(seen) == len(convs) and {id(a[7]) for a in seen} == {id(m.k6_layout) for m in convs}
+    skips = {id(b.conv1): b.skip_w for b in net.modules() if isinstance(b, unet.ResBlock) and b.skip is not None}
+    assert skips
+    for m in convs:
+        bn = cuda_conv.layout_block(m.w9.shape[0], m.w9.dtype)
+        want = cuda_conv.device_weight_layout(m.w9, skips.get(id(m)), bn, cuda_conv.CK, m.w9.dtype)
+        assert m.k6_layout.dtype == m.weight.dtype and torch.equal(m.k6_layout, want)
+    assert set(net.state_dict()) == keys
+
+
+def test_plan_is_asked_once_per_size(monkeypatch):
+    """K6's wrapper asks the library for a call size's plan once (the
+    split plan, BN and the layout's size), not at every call."""
+    calls = []
+
+    class Library:
+        def tha4_affine_conv3_plan(self, *args):
+            calls.append(args[:8])
+            plan = args[8]
+            plan[0], plan[1], plan[2], plan[3] = 3, 64, 16, 9 * 16 * 64
+            return 0
+
+    monkeypatch.setattr(cuda_conv.cuda_build, "library", lambda: Library())
+    cuda_conv._plan.cache_clear()
+    try:
+        sizes = (1, 16, 16, 16, 64, 0, 0, 1)
+        assert cuda_conv._plan(*sizes) == (3, 64, 16, 9 * 16 * 64)
+        assert cuda_conv._plan(*sizes) == (3, 64, 16, 9 * 16 * 64)
+        cuda_conv._plan(2, 16, 16, 16, 64, 0, 0, 1)
+        assert calls == [sizes, (2, 16, 16, 16, 64, 0, 0, 1)]
+    finally:
+        cuda_conv._plan.cache_clear()
+
+
+def test_cached_skip_weight_and_bias_follow_the_weight(monkeypatch):
+    """A ResBlock with a 1x1 skip passes K6 the skip's weight as a (Cout,
+    Cs) matrix and the f32 sum of the two biases.  Unfrozen, both are made
+    from the weights at every call; frozen (``Unet.store_w9``), they are
+    the stored copies, outside the state dict, and so is each conv's f32
+    bias."""
+    cfg = unet.UnetConfig(in_channels=4, out_channels=7, model_channels=8, level_channel_multipliers=(1, 2),
+                          level_use_attention=(False, False), num_res_blocks_per_level=1, num_middle_res_blocks=1,
+                          cond_input_channels=6, cond_internal_channels=16)
+    net = unet.Unet(cfg)
+    keys = set(net.state_dict())
+    block = next(m for m in net.modules() if isinstance(m, unet.ResBlock) and m.skip is not None)
+    seen = []
+    real = cuda_conv.fused_affine_conv3_nchw
+    monkeypatch.setattr(cuda_conv, "fused_affine_conv3_nchw", lambda *a: seen.append(a) or real(*a))
+    x = torch.rand((1, 8, 8, block.norm0.weight.shape[0]))
+    cond = torch.rand((1, 16))
+    with torch.no_grad():
+        block.skip.weight.mul_(3.0)
+        block(x, cond, cond, 1.0)
+        skip_w, bias = seen[-1][6], seen[-1][4]
+        assert torch.equal(skip_w, block.skip.weight[:, :, 0, 0])
+        assert torch.equal(bias, block.conv1.bias + block.skip.bias)
+        net.store_w9()
+        block.skip.weight.mul_(0.5)  # frozen: the copies keep the weights they were made from
+        block(x, cond, cond, 1.0)
+        assert seen[-1][6] is block.skip_w and torch.equal(block.skip_w, skip_w)
+        assert seen[-1][4] is block.skip_bias and seen[-1][4].dtype == torch.float32
+        assert seen[-2][4] is block.conv0.bias32  # a "same" block's conv0: its own bias, stored in f32
+    assert set(net.state_dict()) == keys
+
+
+def test_shipped_unets_give_k6_and_its_fold_channels_last_tensors(monkeypatch):
+    """Every x and skip the shipped U-Nets hand K6 and its fold lies
+    channels last (NHWC memory viewed as NCHW), which the kernels need and
+    the wrappers check on the card, also for an input image that lies NCHW
+    (a resize's output, as the body morpher gets it), whose first conv then
+    returns NCHW memory."""
+    checked = []
+    real_conv, real_fold = cuda_conv.fused_affine_conv3_nchw, cuda_conv.fold_groupnorm_film
+
+    def conv(x, scale, shift, w9, bias, skip=None, skip_w=None, layout=None):
+        checked.append(cuda_conv._channels_last(x) and (skip is None or cuda_conv._channels_last(skip)))
+        return real_conv(x, scale, shift, w9, bias, skip, skip_w, layout)
+
+    def fold(x, *args, **kwargs):
+        checked.append(cuda_conv._channels_last(x))
+        return real_fold(x, *args, **kwargs)
+
+    monkeypatch.setattr(cuda_conv, "fused_affine_conv3_nchw", conv)
+    monkeypatch.setattr(cuda_conv, "fold_groupnorm_film", fold)
+    for cfg in (upscaler.shipped_unet_config(), body_morpher.shipped_unet_config()):
+        model = unet.Unet(cfg)
+        gen = torch.Generator().manual_seed(2)
+        with torch.no_grad():
+            model(torch.rand((1, cfg.in_channels, 32, 32), generator=gen).permute(0, 2, 3, 1), torch.zeros((1, 1)),
+                  torch.rand((1, cfg.cond_input_channels), generator=gen))
+    assert len(checked) == 2 * (55 + 47) and all(checked)

@@ -252,6 +252,10 @@ def _affine_conv_case(seed, n, cin, cout, h, w, skip, dtype, device):
     (1, 64, 64, 8, 8, "identity"),      # a tile larger than the image
     (2, 24, 40, 13, 21, "identity"),    # border tiles, H and W not multiples of the tile, a partial chunk
     (1, 12, 16, 13, 21, "conv20"),      # channel counts that are not multiples of 8 (scalar loads)
+    (2, 64, 128, 13, 21, "identity"),   # Cout 128 in one block
+    (1, 256, 256, 32, 32, "conv256"),   # Cout 256 in one block, a deep level's 1x1 skip
+    (2, 96, 64, 70, 130, "conv32"),     # several 64-column tiles, ragged in both directions
+    (1, 64, 300, 24, 40, "identity"),   # Cout past 256: two Cout blocks
 ])
 def test_affine_conv3_kernel_matches_plain(card, dtype, n, cin, cout, h, w, skip):
     """K6 against its plain version, max-abs error over max |plain|: 1e-4 in
@@ -292,11 +296,116 @@ def test_affine_conv3_refuses_what_the_kernel_does_not_take(card):
 def test_affine_conv3_splits_only_small_grids(card):
     """A grid that would not fill the card (the deep levels' few tiles)
     splits its channel chunks among blocks; a 512^2 batch does not; sizes
-    the kernel refuses give 0."""
-    from tha4_tpu_torch.ops import cuda_build
+    the kernel refuses raise."""
+    from tha4_tpu_torch.ops import cuda_conv
 
-    lib = cuda_build.library()
-    assert lib.tha4_affine_conv3_splits(1, 16, 16, 512, 256, 512, 2, 1) > 1
-    assert lib.tha4_affine_conv3_splits(1, 16, 16, 512, 256, 512, 2, 0) > 1
-    assert lib.tha4_affine_conv3_splits(8, 512, 512, 64, 64, 64, 1, 1) == 1
-    assert lib.tha4_affine_conv3_splits(1, 16, 16, 512, 256, 512, 3, 1) == 0
+    assert cuda_conv._plan(1, 16, 16, 512, 256, 512, 2, 1)[0] > 1
+    assert cuda_conv._plan(1, 16, 16, 512, 256, 512, 2, 0)[0] > 1
+    assert cuda_conv._plan(8, 512, 512, 64, 64, 64, 1, 1)[0] == 1
+    with pytest.raises(ValueError, match="does not take"):
+        cuda_conv._plan(1, 16, 16, 512, 256, 512, 3, 1)
+
+
+def _fold_case(seed, n, c, h, w, groups, films, dtype, device, mean=0.0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((n, h, w, c)) * 2.0 + mean).astype(np.float32)).to(device, dtype).permute(0, 3, 1, 2)
+    gamma = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(device)
+    beta = torch.from_numpy(rng.uniform(-0.5, 0.5, c).astype(np.float32)).to(device)
+    # Each FiLM's (scale, shift) as the U-Net makes them: halves of one (N, 2C) linear output.
+    film = tuple(torch.from_numpy((rng.standard_normal((n, 2 * c)) * 0.3).astype(np.float32)).to(device, dtype).chunk(2, dim=-1)
+                 for _ in range(films))
+    return x, groups, gamma, beta, film
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,groups,films,mean", [
+    (2, 64, 24, 40, 32, 2, 0.0),      # a ResBlock's norm1 and its two FiLMs
+    (1, 96, 16, 16, 32, 0, 0.0),      # an up level's cat: three channels a group
+    (3, 24, 13, 21, 4, 1, 0.0),       # six channels a group: groups across the 16-byte vectors
+    (1, 512, 16, 16, 32, 2, 0.0),     # the deepest level
+    (8, 32, 64, 64, 32, 2, 0.0),      # many blocks an image
+    (1, 32, 40, 40, 8, 0, 1000.0),    # a mean 500x the spread: centred statistics
+])
+def test_fold_kernel_matches_plain(card, dtype, n, c, h, w, groups, films, mean):
+    """The fold's two kernels against its plain version on the same x:
+    scale and shift within 1e-5 of their largest in f32 (another order of
+    f32 sums for the statistics), 1e-5 in bf16 as well (the same bf16 x read
+    in f32); two calls bit-identical."""
+    from tha4_tpu_torch.ops import cuda_conv
+
+    args = _fold_case(n * 1000 + c, n, c, h, w, groups, films, dtype, card, mean)
+    before = cuda_conv.fold_groupnorm_film.launches
+    with torch.no_grad():
+        first = cuda_conv.fold_groupnorm_film(*args, condition_bias=1.0)
+        again = cuda_conv.fold_groupnorm_film(*args, condition_bias=1.0)
+    torch.cuda.synchronize()
+    assert cuda_conv.fold_groupnorm_film.launches == before + 2
+    ref = cuda_conv.fold_groupnorm_film_plain(*args, condition_bias=1.0)
+    for a, b, r in zip(first, again, ref):
+        assert a.dtype == torch.float32 and a.shape == (n, c)
+        assert torch.equal(a, b)
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()), float((a - r).abs().max())
+
+
+def test_fold_kernel_refuses_what_it_does_not_take(card):
+    from tha4_tpu_torch.ops import cuda_conv
+
+    x, groups, gamma, beta, film = _fold_case(1, 1, 16, 8, 8, 4, 2, torch.float32, card)
+    before = cuda_conv.fold_groupnorm_film.launches
+    with pytest.raises(ValueError, match="channels last"):
+        cuda_conv.fold_groupnorm_film(x.contiguous(), groups, gamma, beta, film)
+    with pytest.raises(ValueError, match="at most two"):
+        cuda_conv.fold_groupnorm_film(x, groups, gamma, beta, film + film)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        cuda_conv.fold_groupnorm_film(x, groups, gamma.requires_grad_(), beta, film)
+    with pytest.raises(ValueError, match="does not take"):  # bf16 reads 8 channels at a time
+        cuda_conv.fold_groupnorm_film(*_fold_case(2, 1, 12, 8, 8, 4, 0, torch.bfloat16, card))
+    assert cuda_conv.fold_groupnorm_film.launches == before
+
+
+def test_frozen_unet_reuses_one_weight_layout_per_conv(card, monkeypatch):
+    """A frozen U-Net passes K6 the layouts ``Unet.store_w9`` made, so a
+    call lays out no weight, and its output is bit-identical to the same
+    network's before it was frozen (the wrapper laying out each call)."""
+    from tha4_tpu_torch.models import unet
+    from tha4_tpu_torch.ops import cuda_conv
+
+    cfg = unet.UnetConfig(in_channels=4, out_channels=7, model_channels=32, level_channel_multipliers=(1, 2),
+                          level_use_attention=(False, True), num_res_blocks_per_level=1, num_middle_res_blocks=1,
+                          cond_input_channels=6, cond_internal_channels=16,
+                          attention=unet.AttentionConfig(num_heads=2, use_new_attention_order=True))
+    net = unet.Unet(cfg).requires_grad_(False).eval().to(card)
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.to(torch.bfloat16)
+    x = torch.rand((2, 32, 32, 4), device=card, dtype=torch.bfloat16)
+    args = (torch.zeros((2, 1), device=card), torch.rand((2, 6), device=card))
+    with torch.no_grad():
+        unfrozen = net(x, *args)
+        net.store_w9()
+        made = []
+        real = cuda_conv.device_weight_layout
+        monkeypatch.setattr(cuda_conv, "device_weight_layout", lambda *a: made.append(1) or real(*a))
+        first = net(x, *args)
+        again = net(x, *args)
+    torch.cuda.synchronize()
+    assert not made and torch.equal(first, again) and torch.equal(first, unfrozen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,ho,wo", [(1, 33, 47, 29, 45), (3, 16, 16, 7, 9), (2, 512, 512, 512, 511)])
+def test_warp_kernel_at_ragged_sizes(card, dtype, n, h, w, ho, wo):
+    """K2 where the output's rows and columns are not multiples of a block,
+    an odd output width, and a batch: bit-identical to the plain version in
+    f32 (the same f32 lerps in the same order), one bf16 step in bf16."""
+    rng = np.random.default_rng(ho * wo)
+    image = torch.from_numpy(rng.uniform(-1, 1, (n, h, w, 4)).astype(np.float32)).to(card, dtype)
+    grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (n, ho, wo, 2)).astype(np.float32)).to(card)
+    out = cuda_warp.grid_sample_fast(image, grid)
+    torch.cuda.synchronize()
+    ref = cuda_warp.grid_sample_bilinear_border(image, grid)
+    assert out.dtype == dtype and out.shape == (n, ho, wo, 4)
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+    else:
+        assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7

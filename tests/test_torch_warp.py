@@ -159,3 +159,41 @@ def test_nearest_and_avg_2x_match_jax():
     x = np.random.default_rng(18).standard_normal((2, 6, 10, 3)).astype(np.float32)
     np.testing.assert_array_equal(resize.upsample_nearest_2x(torch.from_numpy(x)).numpy(), np.asarray(jresize.upsample_nearest_2x(jnp.asarray(x))))
     np.testing.assert_allclose(resize.downsample_avg_2x(torch.from_numpy(x)).numpy(), np.asarray(jresize.downsample_avg_2x(jnp.asarray(x))), atol=1e-6)
+
+
+def _warp_probe():
+    """``tools/warp_probe.py``, a script rather than a package module, loaded by its path."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / "warp_probe.py"
+    spec = importlib.util.spec_from_file_location("warp_probe", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("size,th,kh", [(128, 64, 128), (256, 64, 192)])
+def test_probe_variant_is_k2_on_its_bf16_image(interpret, size, th, kh):
+    """The TPU probe ``tools/warp_probe.py:variant_forward`` with its
+    ``_fwd_kernel_bf16`` (interpreted: two bf16 one-hot matmuls and an f32
+    lerp) computes K2's function: on a seeded bf16 image in [0, 1) and
+    displacements inside its window it is within one bf16 step of the output
+    (2^-8 below 1: the probe lerps y first, K2 x first, both in f32, and the
+    rounding to bf16 can then fall to either neighbour) of K2's plain version,
+    ``grid_sample_bilinear_border``, on the same image and f32 grid."""
+    probe = _warp_probe()
+    rng = np.random.default_rng(size)
+    image = rng.uniform(0.0, 1.0, (1, size, size, 4)).astype(np.float32)
+    flow = _smooth_flow(rng, 1, size, size, 0.1)
+    # Vertical displacements within the window's budget of (kh - th - 8) / 2 rows.
+    budget = (kh - th - 8) / 2.0 * 0.9 / (size / 2.0)
+    flow[..., 1] = np.clip(flow[..., 1], -budget, budget)
+    grid = (np.asarray(jwarp.identity_grid(size, size))[None] + flow).astype(np.float32)
+    image16 = jnp.asarray(image).astype(jnp.bfloat16)
+    out = probe.variant_forward(jnp.transpose(image16, (0, 3, 1, 2)), jnp.asarray(grid[..., 0]), jnp.asarray(grid[..., 1]),
+                                size, th, kh, probe._fwd_kernel_bf16)
+    ours = jnp.transpose(out, (0, 2, 3, 1)).astype(jnp.float32)
+    k2 = cuda_warp.grid_sample_fast(torch.from_numpy(np.array(image16.astype(jnp.float32))).bfloat16(), torch.from_numpy(grid))
+    assert k2.dtype == torch.bfloat16 and out.dtype == jnp.bfloat16
+    np.testing.assert_allclose(np.asarray(ours), k2.float().numpy(), atol=2.0**-8, rtol=0)

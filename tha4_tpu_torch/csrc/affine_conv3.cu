@@ -9,72 +9,85 @@
 // of the teacher's two U-Nets (GroupNorm -> FiLM(t) -> FiLM(pose) -> SiLU ->
 // conv1, plus the skip), the first half of every "same" ResBlock and the
 // U-Net's last conv.  scale and shift (N, C) f32 hold the GroupNorm and the
-// FiLMs folded together; the 3x3 weight comes as w9 (Cout, 9 * Cin), k
-// ordered (dy, dx, ci), which is the "col" B operand of mma.sync as it is.
+// FiLMs folded together (csrc/group_norm_fold.cu).  The weights come in a
+// device layout made once per weight by the wrapper: per block of BN output
+// channels, the 3x3 conv's input channels in chunks of CK = 16, each chunk's
+// nine taps, then the 1x1 skip's chunks (tha4_affine_conv3_plan says BN).
 //
 // Arithmetic, the plain version's (fused_affine_conv3_plain): v = x * scale
-// + shift and the SiLU in f32, rounded once to x's dtype; zero padding
-// after the activation (SiLU(shift) != 0); products of those operands with
-// f32 sums; bias, then the identity skip, added in f32; one rounding to x's
-// dtype.  A 1x1 skip is more of the same GEMM: its Cs channels are extra K
-// columns over the tile's own pixels, summed into the same accumulators.
+// + shift (two roundings, no FMA) and the SiLU v / (1 + e^-v) in f32,
+// rounded once to x's dtype; zero padding after the activation (SiLU(shift)
+// != 0); products of those operands with f32 sums; bias, then the identity
+// skip, added in f32; one rounding to x's dtype.  A 1x1 skip is more of the
+// same GEMM: its Cs channels are extra K columns over the tile's own pixels,
+// summed into the same accumulators.  Sums run in a fixed order, so two
+// calls are bit-identical.
 //
 // What bounds it on an H100.  In bf16 the teacher's ResBlocks sit near the
 // card's ridge: at (8, 512^2, 64 -> 64) with an identity skip a call moves
 // 805 MB and does 77 G multiply-adds, 0.24 ms of bytes against 0.16 ms of
 // tensor-core time; the wide deep levels (Cin up to 512, 32^2 and 16^2) are
-// bound by operations.  The design answers both: the activation is applied
-// once per loaded element as the halo goes to shared memory (never per tap,
-// never through device memory), and the products run on the tensor cores.
-//   * A block owns 8 x 16 output pixels and 32 or 64 output channels, and
-//     walks Cin in chunks of 32 (bf16) or 16 (f32) channels.
-//   * Per chunk it loads the 10 x 18 halo (activated, zeroed outside the
-//     image) and the chunk's (9 * chunk) x BN weight slice into shared
-//     memory, padded so that every ldmatrix row read is bank-conflict free.
-//   * bf16: warp w computes tile row w (16 pixels = one m16 tile) against
-//     all BN channels with mma.sync.m16n8k16 (bf16 operands through
-//     ldmatrix, f32 accumulators), nine taps x two k16 steps per chunk.
-//   * f32: CUDA-core FMAs (no TF32, no tensor cores), each thread 4 pixels
-//     x BN / 8 channels.
-//   * The epilogue stages the f32 sums through shared memory so that bias,
-//     skip and the store run over whole 8- or 16-byte channel vectors.
-//   * Where the grid would not fill the card (the U-Nets' 16^2-64^2 levels,
-//     whose few tiles carry Cin up to 512), the chunks are split among
-//     several blocks, which write f32 partial sums to a workspace; a second
-//     kernel adds them in split order (deterministic, no atomics), then the
-//     bias and skip, and rounds.
-// Not yet done (a later PR's work): wgmma and TMA, a multi-stage cp.async
-// pipeline (each chunk is loaded, then computed, with two barriers), reuse
-// of one activated halo across the Cout blocks of a wide layer.
+// bound by operations.  Two costs beside those: at Cout = 64 each wgmma
+// reads 4 KB of operands from shared memory for 64 x 64 x 16 multiply-adds,
+// which keeps shared memory as busy as the tensor cores; and the activation
+// (an exponential and a division per loaded halo element) takes CUDA-core
+// time of the same order.  The design overlaps the activation with the
+// products and keeps the halo small.
+//
+// bf16, on wgmma (affine_silu_conv3_wgmma_kernel):
+//   * A block owns ROWS image rows x 64 columns and the whole Cout (BN = 32,
+//     64, 128 or 256; wider layers take several Cout blocks), so each halo
+//     element is activated once for every output channel.  Its warpgroups
+//     (two; four at BN = 64) own ROWS / NWG rows each (8 rows a block up to
+//     BN = 64, then 2); one row is one m64 of wgmma.m64nBNk16, with f32
+//     accumulators in registers.
+//   * Shared memory holds the halo as [row][k group][66 pixels][8 channels]:
+//     every tap's A operand (64 pixels shifted by dx, rows shifted by dy) is
+//     then a run of whole no-swizzle core matrices (8 pixels x 16 bytes), so
+//     wgmma reads it through a descriptor at any shift.  The weights of a
+//     chunk are one contiguous block of the device layout, [tap][k group]
+//     [BN][8], and arrive by one bulk copy (the TMA engine) on an mbarrier.
+//   * A three-stage pipeline over the Cin chunks: while the tensor cores run
+//     chunk q's 9 x ROWS / 2 products asynchronously, the threads activate
+//     chunk q + 1 in place (cp.async brought it raw) and chunk q + 2's halo
+//     and weights are in flight.
+// f32, on the CUDA cores (no TF32; affine_silu_conv3_fma_kernel): 16 x 16
+//   pixels x BN (32 or 64) channels a block, 8 pixels x BN / 8 channels a
+//   thread; double-buffered cp.async of the raw halo and the weights; the
+//   halo activated and transposed to channel-major once per chunk, so a
+//   thread reads 10 pixels of a row once for the three dx taps.
+// Small grids (the U-Nets' 16^2-64^2 levels, and B = 1) split the chunks
+// among several blocks, which write f32 partial sums to a workspace; a
+// second kernel adds them in split order (deterministic, no atomics), then
+// the bias and skip, and rounds.
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TILE_H = 8;
-constexpr int TILE_W = 16;
-constexpr int HALO_H = TILE_H + 2;
-constexpr int HALO_W = TILE_W + 2;
-constexpr int HALO_PIX = HALO_H * HALO_W;
-constexpr int TILE_PIX = TILE_H * TILE_W;
-constexpr int THREADS = 256;  // 8 warps: one tile row each in the bf16 kernel
-
 constexpr int SKIP_NONE = 0;
 constexpr int SKIP_IDENTITY = 1;
 constexpr int SKIP_CONV = 2;
+constexpr int CK = 16;  // input channels per chunk, both dtypes
 
 struct Args {
   const void* x;
   const float* scale;  // null: no pre-activation
   const float* shift;
-  const void* w9;
+  const void* wpack;   // the device layout of w9 and skip_w
   const float* bias;
   const void* skip;
-  const void* skip_w;
   void* out;
   float* partial;  // splits x (N, H, W, Cout) f32 where the chunks are split
   int n, h, w, cin, cout, cs, skip_mode, tiles_x, splits, chunks_per_split;
 };
+
+__device__ __forceinline__ int conv_chunks(const Args& a) { return (a.cin + CK - 1) / CK; }
+__device__ __forceinline__ int skip_chunks(const Args& a) {
+  return a.skip_mode == SKIP_CONV ? (a.cs + CK - 1) / CK : 0;
+}
 
 // A block's share of the chunks: the 3x3 conv's Cin in CK-channel chunks,
 // then (1x1 skip) the skip's Cs, taken in order, chunks_per_split at a time.
@@ -82,31 +95,38 @@ struct ChunkRange {
   int begin, end, conv_chunks;
 };
 
-template <int CK>
 __device__ __forceinline__ ChunkRange chunk_range(const Args& a, int split) {
-  const int conv = (a.cin + CK - 1) / CK;
-  const int total = conv + (a.skip_mode == SKIP_CONV ? (a.cs + CK - 1) / CK : 0);
+  const int conv = conv_chunks(a);
+  const int total = conv + skip_chunks(a);
   const int begin = split * a.chunks_per_split;
   return ChunkRange{begin, min(total, begin + a.chunks_per_split), conv};
 }
 
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-
-// x * scale + shift, SiLU, in f32: two roundings, as the plain version's
-// multiply and add, with no contraction into an FMA.
-__device__ __forceinline__ float activate(float v, const Args& a, int b, int c) {
-  if (a.scale == nullptr) return v;
-  const int i = b * a.cin + c;
-  return silu(__fadd_rn(__fmul_rn(v, __ldg(a.scale + i)), __ldg(a.shift + i)));
+// Chunk q's weights in the device layout, and their count: per Cout block
+// of BN channels, (9 * conv_chunks + skip_chunks) x CK x BN elements.
+template <typename T, int BN>
+__device__ __forceinline__ const T* chunk_weights(const Args& a, int cblock, int q, int& elems) {
+  const int conv = conv_chunks(a);
+  const T* base = static_cast<const T*>(a.wpack) + static_cast<long long>(cblock) * (9 * conv + skip_chunks(a)) * CK * BN;
+  if (q < conv) {
+    elems = 9 * CK * BN;
+    return base + static_cast<long long>(q) * 9 * CK * BN;
+  }
+  elems = CK * BN;
+  return base + (static_cast<long long>(conv) * 9 + (q - conv)) * CK * BN;
 }
+
+// The activation is silu(__fadd_rn(__fmul_rn(x, scale), shift)) in f32: two
+// roundings, as the plain version's multiply and add, with no contraction
+// into an FMA; expf and an IEEE division, in both kernels.
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
 __device__ __forceinline__ bool in_image(const Args& a, int y, int x) {
   return y >= 0 && y < a.h && x >= 0 && x < a.w;
 }
 
-// Channels c .. c + 7 of a row that starts at ``row`` (channel 0 of one
-// pixel, or of one output channel's weights) as f32; channels at or past
-// ``limit`` read as 0.  One 16-byte load where the address allows it.
+// Channels c .. c + 7 of a row that starts at ``row`` as f32; channels at or
+// past ``limit`` read as 0.  One 16-byte load where the address allows it.
 __device__ __forceinline__ void load8(const __nv_bfloat16* row, int c, int limit, float v[8]) {
   const __nv_bfloat16* src = row + c;
   if (c + 8 <= limit && (reinterpret_cast<size_t>(src) & 15) == 0) {
@@ -135,77 +155,259 @@ __device__ __forceinline__ void load4(const float* row, int c, int limit, float 
   }
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint4 pack8(const float v[8]) {
+  uint4 raw;
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h2[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  return raw;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
+__device__ __forceinline__ void unpack8(const uint4& raw, float v[8]) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h2[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+// --- asynchronous copies, barriers and wgmma (PTX) ---
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The generic proxy's writes to shared memory (threads' stores, cp.async)
+// made visible to the async proxy (wgmma's operand reads).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// ``bytes`` from global memory to shared memory by the bulk-copy (TMA)
+// engine, completing on ``bar`` (which then expects exactly those bytes).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
                : "memory");
 }
 
-// D += A (16 x 16, row) * B (16 x 8, col), bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Wait for the phase of ``bar`` with this parity to complete.  A phase that
+// never completes is a fault: trap instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1LL << 24)) __trap();
+  }
 }
 
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keep the compiler from moving accumulator reads or writes across a
+// wgmma fence, issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor, no swizzle: K-major core matrices of 8
+// rows x 16 bytes; ``lbo`` bytes between the two core matrices of a k16
+// step, ``sbo`` bytes between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// D (64 x 32, f32, 16 registers a thread) += A (64 x 16) * B (16 x 32), bf16, both K-major in
+// shared memory (descriptors).
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 64, f32, 32 registers a thread) += A (64 x 16) * B (16 x 64), bf16, both K-major in
+// shared memory (descriptors).
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 128, f32, 64 registers a thread) += A (64 x 16) * B (16 x 128), bf16, both K-major in
+// shared memory (descriptors).
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 256, f32, 128 registers a thread) += A (64 x 16) * B (16 x 256), bf16, both K-major in
+// shared memory (descriptors).
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (BN == 32) wgmma_m64n32(d, desc_a, desc_b);
+  else if constexpr (BN == 64) wgmma_m64n64(d, desc_a, desc_b);
+  else if constexpr (BN == 128) wgmma_m64n128(d, desc_a, desc_b);
+  else wgmma_m64n256(d, desc_a, desc_b);
+}
+
+// --- the epilogue, shared by both kernels ---
+
 // The staged f32 sums of the tile, out_sm[pixel][channel] with row stride
-// BN + 4, plus bias (and the identity skip), rounded once and stored as
-// whole channel vectors.
-template <typename T, int BN>
+// BN + 4 (pixel = row * TWD + column), plus bias (and the identity skip),
+// rounded once and stored, eight channels a 16-byte vector where Cout
+// allows it.
+template <typename T, int BN, int TH, int TWD, int NT>
 __device__ __forceinline__ void epilogue(const Args& a, const float* out_sm, int b, int ty0, int tx0, int n0) {
   constexpr int OS = BN + 4;
-  const bool vec = (a.cout & 3) == 0;
-  for (int idx = threadIdx.x; idx < TILE_PIX * (BN / 4); idx += THREADS) {
-    const int pix = idx / (BN / 4);
-    const int c4 = (idx % (BN / 4)) * 4;
-    const int y = ty0 + pix / TILE_W;
-    const int x = tx0 + pix % TILE_W;
-    const int co = n0 + c4;
+  if ((a.cout & 7) == 0) {  // eight channels an item: 16-byte loads and stores
+    for (int idx = threadIdx.x; idx < TH * TWD * (BN / 8); idx += NT) {
+      const int pix = idx / (BN / 8);
+      const int c8 = (idx % (BN / 8)) * 8;
+      const int y = ty0 + pix / TWD;
+      const int x = tx0 + pix % TWD;
+      const int co = n0 + c8;
+      if (y >= a.h || x >= a.w || co >= a.cout) continue;
+      const long long o = ((static_cast<long long>(b) * a.h + y) * a.w + x) * a.cout + co;
+      const float4 s0 = *reinterpret_cast<const float4*>(out_sm + pix * OS + c8);
+      const float4 s1 = *reinterpret_cast<const float4*>(out_sm + pix * OS + c8 + 4);
+      const float4 b0 = __ldg(reinterpret_cast<const float4*>(a.bias + co));
+      const float4 b1 = __ldg(reinterpret_cast<const float4*>(a.bias + co + 4));
+      float v[8] = {__fadd_rn(s0.x, b0.x), __fadd_rn(s0.y, b0.y), __fadd_rn(s0.z, b0.z), __fadd_rn(s0.w, b0.w),
+                    __fadd_rn(s1.x, b1.x), __fadd_rn(s1.y, b1.y), __fadd_rn(s1.z, b1.z), __fadd_rn(s1.w, b1.w)};
+      T* dst = static_cast<T*>(a.out) + o;
+      if constexpr (sizeof(T) == 2) {
+        if (a.skip_mode == SKIP_IDENTITY) {
+          float r[8];
+          unpack8(__ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(a.skip) + o)), r);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] = __fadd_rn(v[k], r[k]);
+        }
+        *reinterpret_cast<uint4*>(dst) = pack8(v);
+      } else {
+        if (a.skip_mode == SKIP_IDENTITY) {
+          const float4* sk = reinterpret_cast<const float4*>(static_cast<const T*>(a.skip) + o);
+          const float4 r0 = __ldg(sk), r1 = __ldg(sk + 1);
+          const float r[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] = __fadd_rn(v[k], r[k]);
+        }
+        reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+    return;
+  }
+  // Any other Cout: one channel at a time.
+  for (int idx = threadIdx.x; idx < TH * TWD * BN; idx += NT) {
+    const int pix = idx / BN;
+    const int c = idx % BN;
+    const int y = ty0 + pix / TWD;
+    const int x = tx0 + pix % TWD;
+    const int co = n0 + c;
     if (y >= a.h || x >= a.w || co >= a.cout) continue;
     const long long o = ((static_cast<long long>(b) * a.h + y) * a.w + x) * a.cout + co;
-    float v[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = co + k < a.cout ? __fadd_rn(out_sm[pix * OS + c4 + k], __ldg(a.bias + co + k)) : 0.0f;
-    if (a.skip_mode == SKIP_IDENTITY) {
-      const T* s = static_cast<const T*>(a.skip) + o;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (co + k < a.cout) v[k] = __fadd_rn(v[k], tha4::ldg_f32<T>(s + k));
-    }
-    T* dst = static_cast<T*>(a.out) + o;
-    if (vec) {
-      if constexpr (sizeof(T) == 2) {
-        uint2 raw;
-        *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(v[0], v[1]);
-        *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v[2], v[3]);
-        *reinterpret_cast<uint2*>(dst) = raw;
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (co + k < a.cout) dst[k] = tha4::from_f32<T>(v[k]);
-    }
+    float v = __fadd_rn(out_sm[pix * OS + c], __ldg(a.bias + co));
+    if (a.skip_mode == SKIP_IDENTITY) v = __fadd_rn(v, tha4::ldg_f32<T>(static_cast<const T*>(a.skip) + o));
+    static_cast<T*>(a.out)[o] = tha4::from_f32<T>(v);
   }
 }
 
 // A split block's staged f32 sums, raw, to its plane of the workspace.
-template <int BN>
+template <int BN, int TH, int TWD, int NT>
 __device__ void store_partial(const Args& a, const float* out_sm, int split, int b, int ty0, int tx0, int n0) {
   constexpr int OS = BN + 4;
-  for (int idx = threadIdx.x; idx < TILE_PIX * BN; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < TH * TWD * BN; idx += NT) {
     const int pix = idx / BN;
     const int c = idx % BN;
-    const int y = ty0 + pix / TILE_W;
-    const int x = tx0 + pix % TILE_W;
+    const int y = ty0 + pix / TWD;
+    const int x = tx0 + pix % TWD;
     const int co = n0 + c;
     if (y >= a.h || x >= a.w || co >= a.cout) continue;
     a.partial[(((static_cast<long long>(split) * a.n + b) * a.h + y) * a.w + x) * a.cout + co] = out_sm[pix * OS + c];
@@ -228,149 +430,231 @@ affine_silu_conv3_reduce_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int CK16 = 32;             // input channels per chunk
-constexpr int APIX16 = CK16 + 8;     // halo pixel stride in elements: 80 B
-constexpr int KROW16 = 9 * CK16 + 8; // weight row stride in elements: 592 B
+namespace wg {
 
+constexpr int TW = 64;        // tile columns: one m64 per tile row
+constexpr int HWID = TW + 2;  // halo columns
+constexpr int ASTAGES = 3;    // halo stages: computed, being activated, in flight
+constexpr int AHEAD = ASTAGES - 1;  // chunks whose halo is loaded ahead of the one computed
+constexpr int WSTAGES = 2;    // weight stages
+constexpr int BARS = 128;     // bytes before the stages: the weight stages' mbarriers
+
+template <int ROWS>
+__host__ __device__ constexpr int a_stage_bytes() {
+  return (ROWS + 2) * 2 * HWID * 16;
+}
 template <int BN>
-constexpr int smem_bytes_bf16() {
-  return (HALO_PIX * APIX16 + BN * KROW16) * 2;
+__host__ __device__ constexpr int w_stage_bytes() {
+  return 9 * CK * BN * 2;
+}
+template <int BN, int ROWS>
+__host__ __device__ constexpr int smem_bytes() {
+  constexpr int pipeline = ASTAGES * a_stage_bytes<ROWS>() + WSTAGES * w_stage_bytes<BN>();
+  constexpr int staging = ROWS * TW * (BN + 4) * 4;
+  return BARS + (pipeline > staging ? pipeline : staging);
 }
 
-// The chunk's operands into shared memory.  conv: the activated 10 x 18
-// halo of channels c0 .. c0 + 31 and w9's nine taps for them; 1x1 skip: the
-// tile's own skip pixels at the halo's interior positions and skip_w's
-// columns, as tap 0.
-template <int BN>
-__device__ void stage_bf16(const Args& a, __nv_bfloat16* halo, __nv_bfloat16* wsm, int b, int ty0, int tx0,
-                           int n0, int c0, bool skip_phase) {
+// A 16-byte piece of the halo (8 channels of one pixel) in the stage layout
+// [halo row][k group][halo column][8].
+__device__ __forceinline__ int piece_offset(int hr, int g, int p) { return ((hr * 2 + g) * HWID + p) * 16; }
+
+// Chunk q's A operand into ``stage``, raw.  conv: the 66-column halo of
+// ROWS + 2 rows, channels c0 .. c0 + 15 (cp.async; zeros outside the image
+// and past Cin); 1x1 skip: the skip's values at the tile's own pixels,
+// which is all the centre tap reads.
+template <int ROWS, int NT>
+__device__ void load_a(const Args& a, unsigned char* stage, int b, int y0, int x0, int c0, bool skip_phase) {
   const int channels = skip_phase ? a.cs : a.cin;
   const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(skip_phase ? a.skip : a.x);
-  const int pixels = skip_phase ? TILE_PIX : HALO_PIX;
-  for (int idx = threadIdx.x; idx < pixels * (CK16 / 8); idx += THREADS) {
-    const int p = idx / (CK16 / 8);
-    const int grp = idx % (CK16 / 8);
-    const int hy = skip_phase ? p / TILE_W + 1 : p / HALO_W;
-    const int hx = skip_phase ? p % TILE_W + 1 : p % HALO_W;
-    const int y = ty0 - 1 + hy;
-    const int x = tx0 - 1 + hx;
-    const int c = c0 + grp * 8;
-    float v[8];
-    if (in_image(a, y, x)) {
-      load8(src + ((static_cast<long long>(b) * a.h + y) * a.w + x) * channels, c, channels, v);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        // Channels past the input's are 0 after the activation too.
-        v[k] = c + k < channels ? (skip_phase ? v[k] : activate(v[k], a, b, c + k)) : 0.0f;
+  const int pieces = skip_phase ? ROWS * TW * 2 : (ROWS + 2) * HWID * 2;
+  const bool vec = (channels & 7) == 0;
+  for (int i = threadIdx.x; i < pieces; i += NT) {
+    const int g = i & 1;
+    const int rest = i >> 1;
+    const int hr = skip_phase ? rest / TW + 1 : rest / HWID;
+    const int p = skip_phase ? rest % TW + 1 : rest % HWID;
+    const int y = y0 - 1 + hr;
+    const int x = x0 - 1 + p;
+    const int c = c0 + 8 * g;
+    unsigned char* dst = stage + piece_offset(hr, g, p);
+    if (in_image(a, y, x) && c < channels) {
+      const __nv_bfloat16* row = src + ((static_cast<long long>(b) * a.h + y) * a.w + x) * channels;
+      if (vec) {
+        cp_async16(dst, row + c);
+      } else {
+        float v[8];
+        load8(row, c, channels, v);
+        *reinterpret_cast<uint4*>(dst) = pack8(v);
       }
     } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = 0.0f;  // zero padding, after the activation
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);  // zero padding, after the activation
     }
-    uint4 raw;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) h2[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(halo + (hy * HALO_W + hx) * APIX16 + grp * 8) = raw;
-  }
-  const int taps = skip_phase ? 1 : 9;
-  const __nv_bfloat16* wsrc = static_cast<const __nv_bfloat16*>(skip_phase ? a.skip_w : a.w9);
-  const int row = taps * channels;  // elements per output channel in global memory
-  for (int idx = threadIdx.x; idx < BN * taps * (CK16 / 8); idx += THREADS) {
-    const int nl = idx / (taps * (CK16 / 8));
-    const int rem = idx % (taps * (CK16 / 8));
-    const int t = rem / (CK16 / 8);
-    const int grp = rem % (CK16 / 8);
-    const int co = n0 + nl;
-    const int c = c0 + grp * 8;
-    float v[8];
-    if (co < a.cout) {
-      load8(wsrc + static_cast<long long>(co) * row + t * channels, c, channels, v);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = 0.0f;
-    }
-    uint4 raw;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) h2[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(wsm + nl * KROW16 + t * CK16 + grp * 8) = raw;
   }
 }
 
-template <int BN>
-__global__ void __launch_bounds__(THREADS)
-affine_silu_conv3_mma_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wsm = halo + HALO_PIX * APIX16;
-  const int ty0 = (blockIdx.x / a.tiles_x) * TILE_H;
-  const int tx0 = (blockIdx.x % a.tiles_x) * TILE_W;
-  const int n0 = blockIdx.y * BN;
+// The activation of a conv chunk, in place, over the pieces this thread
+// loaded (so its own cp.async wait makes them visible): each element once,
+// rounded once to bf16.  Pieces outside the image and channels past Cin stay
+// 0.  The block's thread count is even, so all of a thread's pieces lie in
+// one k group, and it reads that group's eight scales and shifts once.
+template <int ROWS, int NT>
+__device__ void activate_a(const Args& a, unsigned char* stage, int b, int y0, int x0, int c0) {
+  constexpr int pieces = (ROWS + 2) * HWID * 2;
+  const int c = c0 + 8 * (threadIdx.x & 1);
+  if (c >= a.cin) return;
+  float sc[8], sh[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = b * a.cin + c + k;
+    sc[k] = c + k < a.cin ? __ldg(a.scale + i) : 0.0f;
+    sh[k] = c + k < a.cin ? __ldg(a.shift + i) : 0.0f;
+  }
+  for (int i = threadIdx.x; i < pieces; i += NT) {
+    const int rest = i >> 1;
+    const int hr = rest / HWID;
+    const int p = rest % HWID;
+    if (!in_image(a, y0 - 1 + hr, x0 - 1 + p)) continue;
+    uint4* piece = reinterpret_cast<uint4*>(stage + piece_offset(hr, i & 1, p));
+    float v[8];
+    unpack8(*piece, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = c + k < a.cin ? silu(__fadd_rn(__fmul_rn(v[k], sc[k]), sh[k])) : 0.0f;
+    *piece = pack8(v);
+  }
+}
+
+// One chunk's products: for every tap and every row this warpgroup owns,
+// D[row] += A(row shifted by the tap) x B(tap).
+template <int BN, int RPW>
+__device__ __forceinline__ void mma_chunk(float (&acc)[RPW][BN / 2], const unsigned char* astage,
+                                          const unsigned char* wstage, int wgi, bool skip_phase) {
+  const int taps = skip_phase ? 1 : 9;
+  for (int t = 0; t < taps; ++t) {
+    const int dy = skip_phase ? 1 : t / 3;
+    const int dx = skip_phase ? 1 : t % 3;
+    const uint64_t desc_b = smem_desc(wstage + t * 2 * BN * 16, BN * 16, 128);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int row = wgi * RPW + r;
+      const uint64_t desc_a = smem_desc(astage + piece_offset(row + dy, 0, dx), HWID * 16, 128);
+      wgmma_bn<BN>(acc[r], desc_a, desc_b);
+    }
+  }
+}
+
+}  // namespace wg
+
+template <int BN, int RPW, int NWG>
+__global__ void __launch_bounds__(128 * NWG)
+affine_silu_conv3_wgmma_kernel(Args a) {
+  using namespace wg;
+  constexpr int ROWS = NWG * RPW;
+  constexpr int NT = 128 * NWG;
+  constexpr int ASB = a_stage_bytes<ROWS>();
+  constexpr int WSB = w_stage_bytes<BN>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* abase = smem + BARS;
+  unsigned char* wbase = abase + ASTAGES * ASB;
+  const int y0 = (blockIdx.x / a.tiles_x) * ROWS;
+  const int x0 = (blockIdx.x % a.tiles_x) * TW;
+  const int cblock = blockIdx.y;
   const int b = blockIdx.z / a.splits;
   const int split = blockIdx.z % a.splits;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int wgi = threadIdx.x / 128;
+  const ChunkRange range = chunk_range(a, split);
+  const int nq = range.end - range.begin;
 
-  float acc[BN / 8][4];
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = 0.0f;
-
-  // ldmatrix row addresses: A rows are the warp's 16 pixels (lanes 0-15 at
-  // k 0-7, lanes 16-31 at k 8-15); B rows are output channels, two n8 tiles
-  // per x4 load (lanes 0-7 / 8-15: tile 0 at k 0-7 / 8-15; 16-31: tile 1).
-  const int a_px = lane & 15;
-  const int a_k = (lane >> 4) * 8;
-  const int b_n = (lane & 7) + ((lane >> 4) << 3);
-  const int b_k = ((lane >> 3) & 1) * 8;
-
-  const ChunkRange range = chunk_range<CK16>(a, split);
-  for (int q = range.begin; q < range.end; ++q) {
+  auto load_w = [&](int i) {  // one thread: chunk range.begin + i into weight stage i % 2
+    int elems;
+    const __nv_bfloat16* src = chunk_weights<__nv_bfloat16, BN>(a, cblock, range.begin + i, elems);
+    bulk_load(wbase + (i & 1) * WSB, src, elems * 2, bars + (i & 1));
+  };
+  auto load_chunk = [&](int i) {
+    const int q = range.begin + i;
     const bool skip_phase = q >= range.conv_chunks;
-    const int c0 = (skip_phase ? q - range.conv_chunks : q) * CK16;
-    const int taps = skip_phase ? 1 : 9;
-    stage_bf16<BN>(a, halo, wsm, b, ty0, tx0, n0, c0, skip_phase);
-    __syncthreads();
-    for (int t = 0; t < taps; ++t) {
-      const int dy = skip_phase ? 1 : t / 3;
-      const int dx = skip_phase ? 1 : t % 3;
+    load_a<ROWS, NT>(a, abase + (i % ASTAGES) * ASB, b, y0, x0, (skip_phase ? q - range.conv_chunks : q) * CK, skip_phase);
+  };
+  auto activate_chunk = [&](int i) {
+    const int q = range.begin + i;
+    if (q < range.conv_chunks && a.scale != nullptr) activate_a<ROWS, NT>(a, abase + (i % ASTAGES) * ASB, b, y0, x0, q * CK);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[RPW][BN / 2];
 #pragma unroll
-      for (int ks = 0; ks < CK16 / 16; ++ks) {
-        unsigned af[4];
-        ldmatrix_x4(af, smem_addr(halo + ((warp + dy) * HALO_W + a_px + dx) * APIX16 + ks * 16 + a_k));
+  for (int r = 0; r < RPW; ++r)
 #pragma unroll
-        for (int j = 0; j < BN / 16; ++j) {
-          unsigned bf[4];
-          ldmatrix_x4(bf, smem_addr(wsm + (j * 16 + b_n) * KROW16 + t * CK16 + ks * 16 + b_k));
-          mma_bf16(acc[2 * j], af, bf[0], bf[1]);
-          mma_bf16(acc[2 * j + 1], af, bf[2], bf[3]);
-        }
-      }
+    for (int k = 0; k < BN / 2; ++k) acc[r][k] = 0.0f;
+
+  // Prologue: chunks 0 .. AHEAD - 1 in flight, chunk 0 activated.
+  for (int i = 0; i < AHEAD; ++i) {
+    if (i < nq) {
+      if (threadIdx.x == 0 && i < WSTAGES) load_w(i);
+      load_chunk(i);
     }
-    __syncthreads();
+    cp_async_commit();
+  }
+  cp_async_wait<AHEAD - 1>();
+  activate_chunk(0);
+  fence_proxy_async();
+  __syncthreads();
+
+  for (int i = 0; i < nq; ++i) {
+    const bool skip_phase = range.begin + i >= range.conv_chunks;
+    mbar_wait(bars + (i & 1), (i >> 1) & 1);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) fence_regs(acc[r]);
+    wgmma_fence();
+    mma_chunk<BN, RPW>(acc, abase + (i % ASTAGES) * ASB, wbase + (i & 1) * WSB, wgi, skip_phase);
+    wgmma_commit();
+    // While the tensor cores work: chunk i + AHEAD's halo into the stage
+    // chunk i - 1 has left, and chunk i + 1 activated.
+    if (i + AHEAD < nq) load_chunk(i + AHEAD);
+    cp_async_commit();
+    if (i + 1 < nq) {
+      cp_async_wait<AHEAD - 1>();
+      activate_chunk(i + 1);
+      fence_proxy_async();
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) fence_regs(acc[r]);
+    __syncthreads();  // weight stage i % 2 and halo stage i % 3 are free
+    if (threadIdx.x == 0 && i + 2 < nq) load_w(i + 2);
   }
 
-  // Accumulator (j, k): pixel (lane >> 2) + 8 * (k >> 1) of the warp's row,
-  // channel j * 8 + 2 * (lane & 3) + (k & 1).
-  float* out_sm = reinterpret_cast<float*>(smem);
+  // Accumulator k of row r: pixel 16 * warp + lane / 4 (+ 8 for k & 2),
+  // channel 8 * (k / 4) + 2 * (lane % 4) + (k & 1).
+  float* out_sm = reinterpret_cast<float*>(abase);
   constexpr int OS = BN + 4;
-  const int g = lane >> 2;
-  const int q = lane & 3;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int m = 16 * warp + lane / 4;
+  const int n = 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    *reinterpret_cast<float2*>(out_sm + (warp * TILE_W + g) * OS + j * 8 + 2 * q) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(out_sm + (warp * TILE_W + g + 8) * OS + j * 8 + 2 * q) = make_float2(acc[j][2], acc[j][3]);
+  for (int r = 0; r < RPW; ++r) {
+    const int pix = (wgi * RPW + r) * TW + m;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<float2*>(out_sm + pix * OS + 8 * j + n) = make_float2(acc[r][4 * j], acc[r][4 * j + 1]);
+      *reinterpret_cast<float2*>(out_sm + (pix + 8) * OS + 8 * j + n) = make_float2(acc[r][4 * j + 2], acc[r][4 * j + 3]);
+    }
   }
   __syncthreads();
   if (a.splits > 1) {
-    store_partial<BN>(a, out_sm, split, b, ty0, tx0, n0);
+    store_partial<BN, ROWS, TW, NT>(a, out_sm, split, b, y0, x0, cblock * BN);
   } else {
-    epilogue<__nv_bfloat16, BN>(a, out_sm, b, ty0, tx0, n0);
+    epilogue<__nv_bfloat16, BN, ROWS, TW, NT>(a, out_sm, b, y0, x0, cblock * BN);
   }
 }
 
@@ -378,131 +662,203 @@ affine_silu_conv3_mma_kernel(Args a) {
 // f32: CUDA-core FMAs
 // ---------------------------------------------------------------------------
 
-constexpr int CK32 = 16;          // input channels per chunk
-constexpr int HP32 = CK32 + 1;    // halo pixel stride in floats (conflict-free pixel reads)
+namespace cc {
+
+constexpr int THREADS = 256;
+constexpr int TILE = 16;                // 16 x 16 output pixels
+constexpr int HALO = TILE + 2;          // 18
+constexpr int HALO_PIX = HALO * HALO;   // 324
+constexpr int ROW = 20;                 // act row stride in floats
+constexpr int PLANE = HALO * ROW + 4;   // act channel stride: 364, spreads the transposing writes over banks
+constexpr int RAW_BYTES = HALO_PIX * CK * 4;
+constexpr int ACT_BYTES = CK * PLANE * 4;
 
 template <int BN>
-constexpr int smem_bytes_f32() {
-  return (HALO_PIX * HP32 + 9 * CK32 * (BN + 4)) * 4;
+__host__ __device__ constexpr int w_bytes() {
+  return 9 * CK * BN * 4;
+}
+template <int BN>
+__host__ __device__ constexpr int smem_bytes() {
+  constexpr int pipeline = 2 * RAW_BYTES + ACT_BYTES + 2 * w_bytes<BN>();
+  constexpr int staging = TILE * TILE * (BN + 4) * 4;
+  return pipeline > staging ? pipeline : staging;
 }
 
+// Chunk q's raw halo ([pixel][16 channels]: conv, the 18 x 18 halo; 1x1
+// skip, the tile's own pixels at their halo positions) and weights
+// ([tap][16][BN], contiguous in the device layout) into one buffer.
 template <int BN>
-__device__ void stage_f32(const Args& a, float* halo, float* wsm, int b, int ty0, int tx0, int n0, int c0,
-                          bool skip_phase) {
-  constexpr int WROW = BN + 4;
+__device__ void load_chunk(const Args& a, float* raw, float* wsm, int b, int y0, int x0, int cblock, int q,
+                           int conv_chunks_) {
+  const bool skip_phase = q >= conv_chunks_;
+  const int c0 = (skip_phase ? q - conv_chunks_ : q) * CK;
   const int channels = skip_phase ? a.cs : a.cin;
   const float* src = static_cast<const float*>(skip_phase ? a.skip : a.x);
-  const int pixels = skip_phase ? TILE_PIX : HALO_PIX;
-  for (int idx = threadIdx.x; idx < pixels * (CK32 / 4); idx += THREADS) {
-    const int p = idx / (CK32 / 4);
-    const int grp = idx % (CK32 / 4);
-    const int hy = skip_phase ? p / TILE_W + 1 : p / HALO_W;
-    const int hx = skip_phase ? p % TILE_W + 1 : p % HALO_W;
-    const int y = ty0 - 1 + hy;
-    const int x = tx0 - 1 + hx;
+  const int pixels = skip_phase ? TILE * TILE : HALO_PIX;
+  const bool vec = (channels & 3) == 0;
+  for (int i = threadIdx.x; i < pixels * (CK / 4); i += THREADS) {
+    const int p = i / (CK / 4);
+    const int grp = i % (CK / 4);
+    const int hy = skip_phase ? p / TILE + 1 : p / HALO;
+    const int hx = skip_phase ? p % TILE + 1 : p % HALO;
+    const int y = y0 - 1 + hy;
+    const int x = x0 - 1 + hx;
     const int c = c0 + grp * 4;
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (in_image(a, y, x)) {
-      load4(src + ((static_cast<long long>(b) * a.h + y) * a.w + x) * channels, c, channels, v);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = c + k < channels ? (skip_phase ? v[k] : activate(v[k], a, b, c + k)) : 0.0f;
+    float* dst = raw + (hy * HALO + hx) * CK + grp * 4;
+    if (in_image(a, y, x) && c < channels) {
+      const float* row = src + ((static_cast<long long>(b) * a.h + y) * a.w + x) * channels;
+      if (vec) {
+        cp_async16(dst, row + c);
+      } else {
+        float v[4];
+        load4(row, c, channels, v);
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) halo[(hy * HALO_W + hx) * HP32 + grp * 4 + k] = v[k];
   }
-  // wsm[t][ci][n]: k-major, output channels contiguous; global reads run
-  // along ci.
-  const int taps = skip_phase ? 1 : 9;
-  const float* wsrc = static_cast<const float*>(skip_phase ? a.skip_w : a.w9);
-  for (int idx = threadIdx.x; idx < BN * taps * CK32; idx += THREADS) {
-    const int ci = idx % CK32;
-    const int t = (idx / CK32) % taps;
-    const int nl = idx / (CK32 * taps);
-    const int co = n0 + nl;
-    const int c = c0 + ci;
-    wsm[(t * CK32 + ci) * WROW + nl] =
-        co < a.cout && c < channels ? __ldg(wsrc + static_cast<long long>(co) * taps * channels + t * channels + c) : 0.0f;
-  }
+  int elems;
+  const float* wsrc = chunk_weights<float, BN>(a, cblock, q, elems);
+  for (int i = threadIdx.x; i < elems / 4; i += THREADS) cp_async16(wsm + 4 * i, wsrc + 4 * i);
 }
 
+}  // namespace cc
+
 template <int BN>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(cc::THREADS)
 affine_silu_conv3_fma_kernel(Args a) {
+  using namespace cc;
   constexpr int CPT = BN / 8;  // output channels per thread
-  constexpr int WROW = BN + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* halo = reinterpret_cast<float*>(smem);
-  float* wsm = halo + HALO_PIX * HP32;
-  const int ty0 = (blockIdx.x / a.tiles_x) * TILE_H;
-  const int tx0 = (blockIdx.x % a.tiles_x) * TILE_W;
-  const int n0 = blockIdx.y * BN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* raw = reinterpret_cast<float*>(smem);                    // 2 x RAW_BYTES
+  float* act = raw + 2 * RAW_BYTES / 4;                           // ACT_BYTES
+  float* wsm = act + ACT_BYTES / 4;                               // 2 x w_bytes
+  const int y0 = (blockIdx.x / a.tiles_x) * TILE;
+  const int x0 = (blockIdx.x % a.tiles_x) * TILE;
+  const int cblock = blockIdx.y;
   const int b = blockIdx.z / a.splits;
   const int split = blockIdx.z % a.splits;
-  const int cg = threadIdx.x & 7;   // channels cg * CPT .. + CPT - 1
-  const int pg = threadIdx.x >> 3;  // pixels px0 .. px0 + 3 of row py
-  const int py = pg >> 2;
-  const int px0 = (pg & 3) * 4;
+  // Thread (warp w, lane l): channels cg * CPT .. of pixels px0 .. px0 + 7
+  // of tile row py.  A warp's four rows fall on distinct banks.
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int cg = lane & 7;
+  const int py = (lane >> 3) + 4 * (warp & 3);
+  const int px0 = 8 * (warp >> 2);
 
-  float acc[4][CPT];
+  float acc[8][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.0f;
 
-  const ChunkRange range = chunk_range<CK32>(a, split);
-  for (int q = range.begin; q < range.end; ++q) {
+  const ChunkRange range = chunk_range(a, split);
+  const int nq = range.end - range.begin;
+  if (nq > 0) load_chunk<BN>(a, raw, wsm, b, y0, x0, cblock, range.begin, range.conv_chunks);
+  cp_async_commit();
+  for (int i = 0; i < nq; ++i) {
+    const int q = range.begin + i;
     const bool skip_phase = q >= range.conv_chunks;
-    const int c0 = (skip_phase ? q - range.conv_chunks : q) * CK32;
-    const int taps = skip_phase ? 1 : 9;
-    stage_f32<BN>(a, halo, wsm, b, ty0, tx0, n0, c0, skip_phase);
+    const float* raw_i = raw + (i & 1) * (RAW_BYTES / 4);
+    const float* w_i = wsm + (i & 1) * (w_bytes<BN>() / 4);
+    if (i + 1 < nq) {
+      load_chunk<BN>(a, raw + ((i + 1) & 1) * (RAW_BYTES / 4), wsm + ((i + 1) & 1) * (w_bytes<BN>() / 4), b, y0, x0,
+                     cblock, q + 1, range.conv_chunks);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    for (int t = 0; t < taps; ++t) {
-      const int dy = skip_phase ? 1 : t / 3;
-      const int dx = skip_phase ? 1 : t % 3;
-      const float* hrow = halo + ((py + dy) * HALO_W + px0 + dx) * HP32;
+    // Activate (conv chunks) and transpose to act[channel][row][column].
+    // THREADS is a multiple of CK, so a thread always sees one channel.
+    const int ci = threadIdx.x % CK;
+    const int c = (skip_phase ? q - range.conv_chunks : q) * CK + ci;
+    const bool act_on = !skip_phase && a.scale != nullptr && c < a.cin;
+    const float sc = act_on ? __ldg(a.scale + b * a.cin + c) : 0.0f;
+    const float sh = act_on ? __ldg(a.shift + b * a.cin + c) : 0.0f;
+    for (int e = threadIdx.x; e < HALO_PIX * CK; e += THREADS) {
+      const int p = e / CK;
+      const int hy = p / HALO;
+      const int hx = p % HALO;
+      float v = raw_i[e];
+      if (act_on && in_image(a, y0 - 1 + hy, x0 - 1 + hx)) v = silu(__fadd_rn(__fmul_rn(v, sc), sh));
+      act[ci * PLANE + hy * ROW + hx] = v;
+    }
+    __syncthreads();
+    if (skip_phase) {
 #pragma unroll 4
-      for (int ci = 0; ci < CK32; ++ci) {
-        float av[4], wv[CPT];
+      for (int ci = 0; ci < CK; ++ci) {
+        const float* arow = act + ci * PLANE + (py + 1) * ROW + px0 + 1;
+        float av[8], wv[CPT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = hrow[i * HP32 + ci];
+        for (int k = 0; k < 8; ++k) av[k] = arow[k];
 #pragma unroll
         for (int j = 0; j < CPT; j += 4) {
-          const float4 w4 = *reinterpret_cast<const float4*>(wsm + (t * CK32 + ci) * WROW + cg * CPT + j);
+          const float4 w4 = *reinterpret_cast<const float4*>(w_i + ci * BN + cg * CPT + j);
           wv[j] = w4.x; wv[j + 1] = w4.y; wv[j + 2] = w4.z; wv[j + 3] = w4.w;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int k = 0; k < 8; ++k)
 #pragma unroll
-          for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+          for (int j = 0; j < CPT; ++j) acc[k][j] = fmaf(av[k], wv[j], acc[k][j]);
+      }
+    } else {
+      for (int ci = 0; ci < CK; ++ci) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const float* arow = act + ci * PLANE + (py + dy) * ROW + px0;
+          float av[10];
+#pragma unroll
+          for (int k = 0; k < 10; ++k) av[k] = arow[k];
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            float wv[CPT];
+#pragma unroll
+            for (int j = 0; j < CPT; j += 4) {
+              const float4 w4 = *reinterpret_cast<const float4*>(w_i + ((dy * 3 + dx) * CK + ci) * BN + cg * CPT + j);
+              wv[j] = w4.x; wv[j + 1] = w4.y; wv[j + 2] = w4.z; wv[j + 3] = w4.w;
+            }
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+#pragma unroll
+              for (int j = 0; j < CPT; ++j) acc[k][j] = fmaf(av[k + dx], wv[j], acc[k][j]);
+          }
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();  // raw, weights and act of this chunk free for the next loads
   }
 
   float* out_sm = reinterpret_cast<float*>(smem);
   constexpr int OS = BN + 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int k = 0; k < 8; ++k)
 #pragma unroll
     for (int j = 0; j < CPT; j += 4)
-      *reinterpret_cast<float4*>(out_sm + (py * TILE_W + px0 + i) * OS + cg * CPT + j) =
-          make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      *reinterpret_cast<float4*>(out_sm + (py * TILE + px0 + k) * OS + cg * CPT + j) =
+          make_float4(acc[k][j], acc[k][j + 1], acc[k][j + 2], acc[k][j + 3]);
   __syncthreads();
   if (a.splits > 1) {
-    store_partial<BN>(a, out_sm, split, b, ty0, tx0, n0);
+    store_partial<BN, TILE, TILE, THREADS>(a, out_sm, split, b, y0, x0, cblock * BN);
   } else {
-    epilogue<float, BN>(a, out_sm, b, ty0, tx0, n0);
+    epilogue<float, BN, TILE, TILE, THREADS>(a, out_sm, b, y0, x0, cblock * BN);
   }
 }
 
+// ---------------------------------------------------------------------------
+// Plans and launches
+// ---------------------------------------------------------------------------
+
 // Above 48 KB a block's shared memory must be asked for: once per kernel.
-int launch(void (*kernel)(Args), int smem, bool& configured, const Args& a, dim3 grid, cudaStream_t s) {
+int launch(void (*kernel)(Args), int threads, int smem, bool& configured, const Args& a, dim3 grid, cudaStream_t s) {
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  kernel<<<grid, THREADS, smem, s>>>(a);
+  kernel<<<grid, threads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,11 +873,13 @@ int sm_count() {
   return count;
 }
 
-// Tiling and split of one call: BN 32 for Cout <= 32, else 64; the chunks
-// split among blocks until the grid holds two blocks per SM, each split
-// taking the same number of chunks.
+// Tiling and split of one call.  bf16: BN the smallest of 32, 64, 128, 256
+// that holds Cout (wider layers take Cout blocks of 256), ROWS 8, 8, 2, 2
+// image rows x 64 columns a block; f32: BN 32 or 64, 16 x 16 pixels.  The
+// chunks split among blocks until the grid holds two blocks per SM, each
+// split taking the same number of chunks.
 struct Plan {
-  int bn, tiles_x, tiles, splits, chunks_per_split;
+  int bn, rows, tile_w, tiles_x, tiles, cblocks, splits, chunks_per_split, wpack_elems;
 };
 
 bool valid(int n, int h, int w, int cin, int cout, int cs, int skip_mode) {
@@ -531,12 +889,23 @@ bool valid(int n, int h, int w, int cin, int cout, int cs, int skip_mode) {
 
 Plan make_plan(int n, int h, int w, int cin, int cout, int cs, int skip_mode, int is_bf16) {
   Plan p;
-  p.bn = cout <= 32 ? 32 : 64;
-  p.tiles_x = (w + TILE_W - 1) / TILE_W;
-  p.tiles = p.tiles_x * ((h + TILE_H - 1) / TILE_H);
-  const int ck = is_bf16 ? CK16 : CK32;
-  const int chunks = (cin + ck - 1) / ck + (skip_mode == SKIP_CONV ? (cs + ck - 1) / ck : 0);
-  const long long blocks = static_cast<long long>(p.tiles) * ((cout + p.bn - 1) / p.bn) * n;
+  if (is_bf16) {
+    p.bn = cout <= 32 ? 32 : cout <= 64 ? 64 : cout <= 128 ? 128 : 256;
+    p.rows = p.bn <= 64 ? 8 : 2;
+    p.tile_w = wg::TW;
+  } else {
+    p.bn = cout <= 32 ? 32 : 64;
+    p.rows = cc::TILE;
+    p.tile_w = cc::TILE;
+  }
+  p.tiles_x = (w + p.tile_w - 1) / p.tile_w;
+  p.tiles = p.tiles_x * ((h + p.rows - 1) / p.rows);
+  p.cblocks = (cout + p.bn - 1) / p.bn;
+  const int conv = (cin + CK - 1) / CK;
+  const int skip = skip_mode == SKIP_CONV ? (cs + CK - 1) / CK : 0;
+  const int chunks = conv + skip;
+  p.wpack_elems = p.cblocks * (9 * conv + skip) * CK * p.bn;
+  const long long blocks = static_cast<long long>(p.tiles) * p.cblocks * n;
   const long long target = 2LL * sm_count();
   long long splits = blocks < target ? (target + blocks - 1) / blocks : 1;
   splits = splits < chunks ? splits : chunks;
@@ -547,43 +916,61 @@ Plan make_plan(int n, int h, int w, int cin, int cout, int cs, int skip_mode, in
 
 }  // namespace
 
-// The number of splits a call with these sizes takes (0 for sizes the
-// kernel refuses); above 1 it needs a workspace of splits x N x H x W x Cout
-// floats.
-extern "C" int tha4_affine_conv3_splits(int n, int h, int w, int cin, int cout, int cs, int skip_mode, int is_bf16) {
-  if (!valid(n, h, w, cin, cout, cs, skip_mode)) return 0;
-  return make_plan(n, h, w, cin, cout, cs, skip_mode, is_bf16).splits;
+// A call's plan, for the wrapper to cache per size: plan[0] the number of
+// splits (above 1 the call needs a workspace of splits x N x H x W x Cout
+// floats), plan[1] BN, plan[2] CK, plan[3] the elements of the weights'
+// device layout.  Returns a cudaError_t (invalid value for sizes the kernel
+// refuses).
+extern "C" int tha4_affine_conv3_plan(int n, int h, int w, int cin, int cout, int cs, int skip_mode, int is_bf16,
+                                      int* plan) {
+  if (!valid(n, h, w, cin, cout, cs, skip_mode) || plan == nullptr) return cudaErrorInvalidValue;
+  const Plan p = make_plan(n, h, w, cin, cout, cs, skip_mode, is_bf16);
+  plan[0] = p.splits;
+  plan[1] = p.bn;
+  plan[2] = CK;
+  plan[3] = p.wpack_elems;
+  return 0;
 }
 
 // x (N, H, W, Cin), skip (N, H, W, Cs) and out (N, H, W, Cout) NHWC in the
-// compute dtype (f32 or bf16); scale, shift (N, Cin) f32 or both null; w9
-// (Cout, 9 * Cin) and skip_w (Cout, Cs) in the compute dtype; bias (Cout,)
-// f32; workspace f32 as tha4_affine_conv3_splits asks, else null.
-// skip_mode: 0 none, 1 identity (Cs = Cout), 2 1x1 conv.  Every pointer
-// 16-byte aligned.  Returns a cudaError_t (0 on success).
-extern "C" int tha4_affine_conv3_forward(const void* x, const void* scale, const void* shift, const void* w9,
-                                         const void* bias, const void* skip, const void* skip_w, void* out, int n,
-                                         int h, int w, int cin, int cout, int cs, int skip_mode, int is_bf16,
-                                         void* workspace, void* stream) {
+// compute dtype (f32 or bf16); scale, shift (N, Cin) f32 or both null;
+// wpack the weights in the device layout of the plan's BN, in the compute
+// dtype; bias (Cout,) f32; workspace f32 as the plan's splits ask, else
+// null.  skip_mode: 0 none, 1 identity (Cs = Cout), 2 1x1 conv.  Every
+// pointer 16-byte aligned.  Returns a cudaError_t (0 on success).
+extern "C" int tha4_affine_conv3_forward(const void* x, const void* scale, const void* shift, const void* wpack,
+                                         const void* bias, const void* skip, void* out, int n, int h, int w, int cin,
+                                         int cout, int cs, int skip_mode, int is_bf16, void* workspace, void* stream) {
   if (!valid(n, h, w, cin, cout, cs, skip_mode) || (skip_mode != SKIP_NONE && skip == nullptr) ||
-      (skip_mode == SKIP_CONV && skip_w == nullptr) || ((scale == nullptr) != (shift == nullptr)))
+      ((scale == nullptr) != (shift == nullptr)))
     return cudaErrorInvalidValue;
   const Plan p = make_plan(n, h, w, cin, cout, cs, skip_mode, is_bf16);
   if ((p.splits > 1 && workspace == nullptr) || static_cast<long long>(n) * p.splits > 65535)
     return cudaErrorInvalidValue;
-  const Args a{x, static_cast<const float*>(scale), static_cast<const float*>(shift), w9,
-               static_cast<const float*>(bias), skip, skip_w, out, static_cast<float*>(workspace),
+  const Args a{x, static_cast<const float*>(scale), static_cast<const float*>(shift), wpack,
+               static_cast<const float*>(bias), skip, out, static_cast<float*>(workspace),
                n, h, w, cin, cout, cs, skip_mode, p.tiles_x, p.splits, p.chunks_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(p.tiles, (cout + p.bn - 1) / p.bn, n * p.splits);
-  static bool configured[4] = {false, false, false, false};
+  const dim3 grid(p.tiles, p.cblocks, n * p.splits);
+  static bool configured[6] = {false, false, false, false, false, false};
   int status;
   if (is_bf16) {
-    status = p.bn == 32 ? launch(affine_silu_conv3_mma_kernel<32>, smem_bytes_bf16<32>(), configured[0], a, grid, s)
-                        : launch(affine_silu_conv3_mma_kernel<64>, smem_bytes_bf16<64>(), configured[1], a, grid, s);
+    switch (p.bn) {
+      case 32:
+        status = launch(affine_silu_conv3_wgmma_kernel<32, 4, 2>, 256, wg::smem_bytes<32, 8>(), configured[0], a, grid, s);
+        break;
+      case 64:
+        status = launch(affine_silu_conv3_wgmma_kernel<64, 2, 4>, 512, wg::smem_bytes<64, 8>(), configured[1], a, grid, s);
+        break;
+      case 128:
+        status = launch(affine_silu_conv3_wgmma_kernel<128, 1, 2>, 256, wg::smem_bytes<128, 2>(), configured[2], a, grid, s);
+        break;
+      default:
+        status = launch(affine_silu_conv3_wgmma_kernel<256, 1, 2>, 256, wg::smem_bytes<256, 2>(), configured[3], a, grid, s);
+    }
   } else {
-    status = p.bn == 32 ? launch(affine_silu_conv3_fma_kernel<32>, smem_bytes_f32<32>(), configured[2], a, grid, s)
-                        : launch(affine_silu_conv3_fma_kernel<64>, smem_bytes_f32<64>(), configured[3], a, grid, s);
+    status = p.bn == 32 ? launch(affine_silu_conv3_fma_kernel<32>, cc::THREADS, cc::smem_bytes<32>(), configured[4], a, grid, s)
+                        : launch(affine_silu_conv3_fma_kernel<64>, cc::THREADS, cc::smem_bytes<64>(), configured[5], a, grid, s);
   }
   if (status != 0 || p.splits == 1) return status;
   const long long total = static_cast<long long>(n) * h * w * cout;

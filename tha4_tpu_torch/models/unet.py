@@ -106,10 +106,14 @@ def _w9(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """``conv``'s 3x3 weight in K6's w9 layout and ``dtype``: the copy
     ``Unet.store_w9`` keeps for a frozen network, else made from the weight
     now (a weight that needs a gradient is passed on, for K6 to refuse)."""
-    w9 = getattr(conv, "w9", None)
-    if w9 is not None and w9.dtype == dtype:
-        return w9
-    return cuda_conv.to_w9(conv.weight.permute(2, 3, 1, 0), dtype)
+    w9 = _stored(conv, "w9", dtype)
+    return cuda_conv.to_w9(conv.weight.permute(2, 3, 1, 0), dtype) if w9 is None else w9
+
+
+def _stored(module: nn.Module, name: str, dtype: torch.dtype):
+    """The copy ``Unet.store_w9`` keeps under ``name`` if it is in ``dtype``."""
+    t = getattr(module, name, None)
+    return t if t is not None and t.dtype == dtype else None
 
 
 def _fold(norm: tnn.GroupNorm, x: torch.Tensor, film=(), condition_bias: float = 1.0):
@@ -120,11 +124,15 @@ def _fold(norm: tnn.GroupNorm, x: torch.Tensor, film=(), condition_bias: float =
 
 
 def _affine_conv3(x: torch.Tensor, conv: nn.Conv2d, scale, shift, skip=None, skip_w=None, bias=None) -> torch.Tensor:
-    """K6 on NHWC tensors: conv(silu(x * scale + shift)) + bias [+ skip]."""
-    bias = wide(conv.bias) if bias is None else bias
-    skip = None if skip is None else skip.contiguous().permute(0, 3, 1, 2)
-    out = cuda_conv.fused_affine_conv3_nchw(x.contiguous().permute(0, 3, 1, 2), scale, shift, _w9(conv, x.dtype),
-                                            bias, skip, skip_w)
+    """K6 on contiguous NHWC tensors (every U-Net activation is one):
+    conv(silu(x * scale + shift)) + bias [+ skip]; ``bias`` f32, by default
+    the conv's own."""
+    if bias is None:
+        bias = _stored(conv, "bias32", torch.float32)
+        bias = wide(conv.bias) if bias is None else bias
+    skip = None if skip is None else skip.permute(0, 3, 1, 2)
+    out = cuda_conv.fused_affine_conv3_nchw(x.permute(0, 3, 1, 2), scale, shift, _w9(conv, x.dtype), bias, skip, skip_w,
+                                            _stored(conv, "k6_layout", x.dtype))
     return out.permute(0, 2, 3, 1)
 
 
@@ -146,18 +154,27 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond0: torch.Tensor, cond1: torch.Tensor, condition_bias: float) -> torch.Tensor:
         resample = {"same": lambda a: a, "up": upsample_nearest_2x, "down": downsample_avg_2x}[self.sampling]
+        # A cuDNN conv's output (the first conv of an image that lies NCHW, an
+        # up / down block's conv0) can be an NHWC view of NCHW memory; K6 and
+        # its fold read NHWC memory.  Free where x already is NHWC.
+        x = x.contiguous()
         if self.sampling == "same":
             h = _affine_conv3(x, self.conv0, *_fold(self.norm0, x))
         else:
-            h = tnn.conv_nhwc(self.conv0, resample(F.silu(self.norm0(x))))
+            h = tnn.conv_nhwc(self.conv0, resample(F.silu(self.norm0(x)))).contiguous()
         film = (self.cond0_layers(cond0).chunk(2, dim=-1), self.cond1_layers(cond1).chunk(2, dim=-1))  # (scale, shift) each
         scale, shift = _fold(self.norm1, h, film, condition_bias)
         skip = resample(x)
         if self.skip is None:
             return _affine_conv3(h, self.conv1, scale, shift, skip)
         # The 1x1 skip's bias joins conv1's.
-        skip_w = self.skip.weight[:, :, 0, 0].to(h.dtype)
-        return _affine_conv3(h, self.conv1, scale, shift, skip, skip_w, wide(self.conv1.bias) + wide(self.skip.bias))
+        skip_w = _stored(self, "skip_w", h.dtype)
+        if skip_w is None:
+            skip_w = self.skip.weight[:, :, 0, 0].to(h.dtype)
+        bias = _stored(self, "skip_bias", torch.float32)
+        if bias is None:
+            bias = wide(self.conv1.bias) + wide(self.skip.bias)
+        return _affine_conv3(h, self.conv1, scale, shift, skip, skip_w, bias)
 
 
 class AttentionBlock(nn.Module):
@@ -270,16 +287,31 @@ class Unet(nn.Module):
 
     @torch.no_grad()
     def store_w9(self) -> None:
-        """Keep each K6 conv's weight in w9 layout beside it, in the weight's
-        dtype and on its device, as a buffer outside the state dict, so that
-        a call does not lay it out anew.  For a frozen network only: a
-        later change to a weight does not reach its copy."""
-        convs = [self.last[2]]
+        """Keep what K6 reads beside each of its convs, on its device, as
+        buffers outside the state dict, so that a call neither lays out nor
+        casts anything: the weight in w9 layout in its dtype (``w9``) and
+        the bias in f32 (``bias32``); on a ResBlock with a 1x1 skip, the
+        skip's weight as a (Cout, Cs) matrix in its dtype (``skip_w``) and
+        the two biases' f32 sum (``skip_bias``); and the weights as the
+        kernel reads them (``k6_layout``: w9, and on conv1 of such a block
+        skip_w too, in ``cuda_conv.device_weight_layout``).  For a frozen
+        network only: a later change to a weight does not reach its copy."""
+        convs = [(self.last[2], None)]
         for m in self.modules():
             if isinstance(m, ResBlock):
-                convs += [m.conv1] + ([m.conv0] if m.sampling == "same" else [])
-        for conv in convs:
-            conv.register_buffer("w9", cuda_conv.to_w9(conv.weight.permute(2, 3, 1, 0)).contiguous(), persistent=False)
+                skip_w = None
+                if m.skip is not None:
+                    skip_w = m.skip.weight[:, :, 0, 0].contiguous()
+                    m.register_buffer("skip_w", skip_w, persistent=False)
+                    m.register_buffer("skip_bias", (wide(m.conv1.bias) + wide(m.skip.bias)).float(), persistent=False)
+                convs += [(m.conv1, skip_w)] + ([(m.conv0, None)] if m.sampling == "same" else [])
+        for conv, skip_w in convs:
+            w9 = cuda_conv.to_w9(conv.weight.permute(2, 3, 1, 0)).contiguous()
+            block = cuda_conv.layout_block(w9.shape[0], w9.dtype)
+            conv.register_buffer("w9", w9, persistent=False)
+            conv.register_buffer("bias32", conv.bias.float().contiguous(), persistent=False)
+            conv.register_buffer("k6_layout", cuda_conv.device_weight_layout(w9, skip_w, block, cuda_conv.CK, w9.dtype),
+                                 persistent=False)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
                 first_conv_addition: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -318,4 +350,5 @@ class Unet(nn.Module):
         assert not hs
 
         norm, _, last_conv = self.last
+        h = h.contiguous()
         return _affine_conv3(h, last_conv, *_fold(norm, h))

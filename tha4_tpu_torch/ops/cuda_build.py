@@ -49,11 +49,18 @@ _SIGNATURES = {
     "tha4_poly_sin_forward": [_P, _P, _L, _I, _P],
     # a, g, da, n, dtypes, stream
     "tha4_poly_sin_backward": [_P, _P, _P, _L, _I, _P],
-    # n, h, w, cin, cout, cs, skip_mode, is_bf16
-    "tha4_affine_conv3_splits": [_I, _I, _I, _I, _I, _I, _I, _I],
-    # x, scale, shift, w9, bias, skip, skip_w, out, n, h, w, cin, cout, cs,
+    # n, h, w, cin, cout, cs, skip_mode, is_bf16, plan[4] out
+    "tha4_affine_conv3_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, scale, shift, wpack, bias, skip, out, n, h, w, cin, cout, cs,
     # skip_mode, is_bf16, workspace, stream
-    "tha4_affine_conv3_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "tha4_affine_conv3_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # n, hw, c, groups, is_bf16
+    "tha4_group_norm_fold_blocks": [_I, _I, _I, _I, _I],
+    # x, n, hw, c, groups, is_bf16, gamma, beta, (film scale, row stride,
+    # film shift, row stride) x 2, film_count, film_bf16, condition_bias,
+    # eps, workspace, scale, shift, stream
+    "tha4_group_norm_fold": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _I,
+                             ctypes.c_float, ctypes.c_float, _P, _P, _P, _P],
 }
 
 
@@ -122,6 +129,16 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def current_stream(device) -> int:
+    """The current CUDA stream of ``device`` (a ``torch.device`` with an
+    index) as a raw handle for a launch.  The call returns just the handle:
+    ``torch.cuda.current_stream`` builds a Stream object, a visible share of
+    the host's cost around a kernel of a few microseconds."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(status: int, what: str) -> None:

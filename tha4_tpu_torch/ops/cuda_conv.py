@@ -1,5 +1,5 @@
 """K6: the pre-activated 3x3 convolution of the U-Nets' ResBlocks
-(counterpart of ``tha4_tpu/ops/pallas_conv.py``).
+(counterpart of ``tha4_tpu/ops/pallas_conv.py``), and its fold.
 
     out = conv3x3(SiLU(x * scale + shift)) + bias [+ skip | + skip_w @ skip]
 
@@ -16,12 +16,18 @@ back the same way.  The kernel needs those strides and the wrapper checks
 them.
 
 ``fused_affine_conv3_nchw`` launches the CUDA kernel in
-``csrc/affine_conv3.cu`` for CUDA tensors (bf16 on the tensor cores, f32 with
-FMAs on the CUDA cores, never TF32) and runs ``fused_affine_conv3_plain``, the
+``csrc/affine_conv3.cu`` for CUDA tensors (bf16 on ``wgmma``, f32 with FMAs
+on the CUDA cores, never TF32) and runs ``fused_affine_conv3_plain``, the
 plain PyTorch version, for CPU tensors; anything the kernel does not take
-raises.  It has no gradient on either device: it refuses an input that
-requires one while grad mode is on (the teacher is frozen, and a silently
-dropped gradient is a fault).
+raises.  The kernel reads ``w9`` and ``skip_w`` in a device layout
+(``device_weight_layout``): a frozen U-Net keeps it beside each conv
+(``Unet.store_w9``) and passes it in; otherwise the wrapper lays the
+weights out for the call.  ``fold_groupnorm_film`` likewise
+launches ``csrc/group_norm_fold.cu`` (two launches: one pass of statistics
+over ``x``, then the affine and the FiLMs) for CUDA tensors and runs
+``fold_groupnorm_film_plain`` for CPU ones.  Neither has a gradient on
+either device: each refuses an input that requires one while grad mode is
+on (the teacher is frozen, and a silently dropped gradient is a fault).
 
 K7 (``tha4_tpu/ops/pallas_packed_conv.py:fused_packed_conv3``) computes the
 same function on the TPU's lane-packed layout (N, H, W/f, f*C), a reshape of
@@ -30,6 +36,8 @@ contiguous NHWC; its counterpart here is K6 on the NHWC view.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -38,6 +46,9 @@ import torch.nn.functional as F
 from tha4_tpu_torch.ops import cuda_build, wide
 
 _SKIP_NONE, _SKIP_IDENTITY, _SKIP_CONV = 0, 1, 2
+# Input channels per chunk of K6's device weight layout (CK in
+# csrc/affine_conv3.cu).
+CK = 16
 
 
 def to_w9(w_hwio: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -48,7 +59,7 @@ def to_w9(w_hwio: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Te
     return w.to(dtype) if dtype is not None else w
 
 
-def fold_groupnorm_film(
+def fold_groupnorm_film_plain(
     x: torch.Tensor,
     num_groups: int,
     gn_scale: torch.Tensor,
@@ -59,7 +70,8 @@ def fold_groupnorm_film(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(n, c) (scale, shift), f32 (f64 for an f64 ``x``), such that
     ``x * scale + shift`` is GroupNorm(x) with its affine, then each FiLM
-    ``y -> y * (condition_bias + f_scale) + f_shift`` in turn.
+    ``y -> y * (condition_bias + f_scale) + f_shift`` in turn: the plain
+    version of ``csrc/group_norm_fold.cu``.
 
     The statistics are f32 and centred (``torch.var_mean``), as
     ``ops.nn.group_norm`` takes them in f32, not the E[x^2] - mean^2 of
@@ -79,6 +91,79 @@ def fold_groupnorm_film(
         b = b * m + f_shift.to(dt)
     scale = a * r_c
     return scale, b - mean_c * scale
+
+
+def fold_groupnorm_film(
+    x: torch.Tensor,
+    num_groups: int,
+    gn_scale: torch.Tensor,
+    gn_bias: torch.Tensor,
+    film: Sequence[Tuple[torch.Tensor, torch.Tensor]] = (),
+    condition_bias: float = 1.0,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(n, c) (scale, shift) of a GroupNorm and the FiLMs after it, as
+    ``fold_groupnorm_film_plain`` computes them.
+
+    x (N, C, H, W) in channels-last memory.  CPU tensors take the plain
+    version; CUDA tensors (x f32 or bf16, at most two FiLMs) launch the
+    fold's two kernels, which read ``x`` once in its own dtype; anything they
+    do not take raises."""
+    film = tuple(film)
+    tensors = (x, gn_scale, gn_bias, *(t for pair in film for t in pair))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("fold_groupnorm_film has no gradient: run it under torch.no_grad() on a frozen network")
+    if x.device.type == "cpu":
+        return fold_groupnorm_film_plain(x, num_groups, gn_scale, gn_bias, film, condition_bias, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fold_groupnorm_film: unsupported device {x.device}")
+    n, c, h, w = x.shape
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    if x.dtype not in (torch.float32, torch.bfloat16) or not _channels_last(x) or x.data_ptr() % 16:
+        raise ValueError(f"fold_groupnorm_film: x must be 16-byte aligned f32 or bf16 lying channels last, got {x.dtype}")
+    if len(film) > 2:
+        raise ValueError(f"fold_groupnorm_film: the CUDA fold takes at most two FiLMs, got {len(film)}")
+    blocks = _fold_blocks(n, h * w, c, num_groups, is_bf16)
+    gamma, beta = (t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous() for t in (gn_scale, gn_bias))
+    film_dtype = film[0][0].dtype if film else torch.float32
+    rows = []
+    for pair in film:
+        for t in pair:
+            if t.dtype != film_dtype or t.dtype not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"fold_groupnorm_film: FiLM terms must share one dtype, f32 or bf16, got {t.dtype} and {film_dtype}")
+            if t.shape != (n, c) or t.stride(1) != 1:
+                raise ValueError(f"fold_groupnorm_film: a FiLM term must be ({n}, {c}) with unit channel stride, got {tuple(t.shape)}")
+            rows += [t.data_ptr(), t.stride(0)]
+    for t in (gamma, beta, *(t for pair in film for t in pair)):
+        if t.device != x.device:
+            raise ValueError(f"fold_groupnorm_film: a tensor on {t.device}, x on {x.device}")
+    if gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"fold_groupnorm_film: the norm's affine must be ({c},)")
+    rows += [None, 0] * (4 - len(rows) // 2)
+    workspace = torch.empty((n * blocks * num_groups * 3,), dtype=torch.float32, device=x.device)
+    scale = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    shift = torch.empty_like(scale)
+    status = cuda_build.library().tha4_group_norm_fold(
+        x.data_ptr(), n, h * w, c, num_groups, is_bf16, gamma.data_ptr(), beta.data_ptr(), *rows, len(film),
+        int(film_dtype == torch.bfloat16), float(condition_bias), float(eps), workspace.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), cuda_build.current_stream(x.device),
+    )
+    cuda_build.check(status, "fold_groupnorm_film")
+    fold_groupnorm_film.launches += 1
+    return scale, shift
+
+
+fold_groupnorm_film.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_blocks(n: int, hw: int, c: int, groups: int, is_bf16: int) -> int:
+    """Blocks per image of the fold's statistics pass, per size."""
+    blocks = cuda_build.library().tha4_group_norm_fold_blocks(n, hw, c, groups, is_bf16)
+    if blocks < 1:
+        raise ValueError(f"fold_groupnorm_film: sizes the CUDA fold does not take (C = {c}, {groups} groups; C a "
+                         f"multiple of {8 if is_bf16 else 4} and at most 2048)")
+    return blocks
 
 
 def fused_affine_conv3_plain(
@@ -122,16 +207,20 @@ def fused_affine_conv3_nchw(
     bias: torch.Tensor,
     skip: Optional[torch.Tensor] = None,
     skip_w: Optional[torch.Tensor] = None,
+    layout: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """conv3(silu(x * scale + shift)) + bias [+ skip or skip_w @ skip].
 
     x (N, C, H, W) in channels-last memory, f32 or bf16; scale, shift (N, C)
     f32, or both None for no pre-activation; w9 (Cout, 9 * C); bias (Cout,),
     the 1x1 skip's own bias folded in; skip (N, Cs, H, W) channels last in
-    x's dtype, Cs = Cout for the identity; skip_w (Cout, Cs) or None.
-    Returns (N, Cout, H, W) in x's dtype, channels last.  CPU tensors take
-    the plain version; CUDA tensors launch K6."""
-    tensors = (x, scale, shift, w9, bias, skip, skip_w)
+    x's dtype, Cs = Cout for the identity; skip_w (Cout, Cs) or None;
+    ``layout``: w9 and skip_w in K6's device layout in x's dtype
+    (``device_weight_layout`` at ``layout_block(Cout, dtype)``), or None to
+    lay them out for this call.  Returns (N, Cout, H, W) in x's dtype,
+    channels last.  CPU tensors take the plain version (which reads w9 and
+    skip_w); CUDA tensors launch K6."""
+    tensors = (x, scale, shift, w9, bias, skip, skip_w, layout)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError("fused_affine_conv3_nchw has no gradient: run it under torch.no_grad() on a frozen network")
     if x.device.type == "cpu":
@@ -140,28 +229,26 @@ def fused_affine_conv3_nchw(
         raise ValueError(f"fused_affine_conv3_nchw: unsupported device {x.device}")
     n, c, h, w = x.shape
     co = w9.shape[0]
-    w9 = w9.to(x.dtype).contiguous()
-    bias = bias.float().contiguous()
-    if skip_w is not None:
-        skip_w = skip_w.to(x.dtype).contiguous()
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.float().contiguous()
     mode = _SKIP_NONE if skip is None else (_SKIP_IDENTITY if skip_w is None else _SKIP_CONV)
     _check(x, scale, shift, w9, bias, skip, skip_w)
-    lib = cuda_build.library()
     dims = (n, h, w, c, co, 0 if skip is None else skip.shape[1], mode, int(x.dtype == torch.bfloat16))
     # Small grids split the channel chunks among blocks, which sum into a
     # workspace of f32 partials (added in a fixed order: deterministic).
-    splits = lib.tha4_affine_conv3_splits(*dims)
-    if splits < 1:
-        raise ValueError(f"fused_affine_conv3_nchw: sizes the kernel does not take {dims}")
+    splits, bn, ck, elems = _plan(*dims)
+    if layout is None:
+        layout = device_weight_layout(w9, skip_w, bn, ck, x.dtype)
+    elif (layout.dtype != x.dtype or layout.numel() != elems or layout.device != x.device or not layout.is_contiguous()
+          or layout.data_ptr() % 16):
+        raise ValueError(f"fused_affine_conv3_nchw: layout must be the contiguous, 16-byte aligned device layout of "
+                         f"{elems} elements in {x.dtype}, got {layout.numel()} in {layout.dtype}")
     workspace = torch.empty((splits, n, h, w, co), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.tha4_affine_conv3_forward(
-        x.data_ptr(),
-        None if scale is None else scale.data_ptr(), None if shift is None else shift.data_ptr(),
-        w9.data_ptr(), bias.data_ptr(),
-        None if skip is None else skip.data_ptr(), None if skip_w is None else skip_w.data_ptr(),
-        out.data_ptr(), *dims, None if workspace is None else workspace.data_ptr(), stream,
+    status = cuda_build.library().tha4_affine_conv3_forward(
+        x.data_ptr(), None if scale is None else scale.data_ptr(), None if shift is None else shift.data_ptr(),
+        layout.data_ptr(), bias.data_ptr(), None if skip is None else skip.data_ptr(), out.data_ptr(), *dims,
+        None if workspace is None else workspace.data_ptr(), cuda_build.current_stream(x.device),
     )
     cuda_build.check(status, "fused_affine_conv3_nchw")
     fused_affine_conv3_nchw.launches += 1
@@ -171,9 +258,57 @@ def fused_affine_conv3_nchw(
 fused_affine_conv3_nchw.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(n: int, h: int, w: int, c: int, co: int, cs: int, mode: int, is_bf16: int) -> Tuple[int, int, int, int]:
+    """K6's plan for one call size, asked of the library once: (splits, BN,
+    CK, elements of the weights' device layout).  BN and CK are those a
+    stored layout was made with (``layout_block``, ``CK``)."""
+    plan = (ctypes.c_int * 4)()
+    if cuda_build.library().tha4_affine_conv3_plan(n, h, w, c, co, cs, mode, is_bf16, plan) != 0:
+        raise ValueError(f"fused_affine_conv3_nchw: sizes the kernel does not take {(n, h, w, c, co, cs, mode)}")
+    if (plan[1], plan[2]) != (layout_block(co, torch.bfloat16 if is_bf16 else torch.float32), CK):
+        raise RuntimeError(f"K6's library plans BN {plan[1]}, CK {plan[2]} where cuda_conv.layout_block and CK say "
+                           f"{layout_block(co, torch.bfloat16 if is_bf16 else torch.float32)}, {CK}")
+    return tuple(plan)
+
+
+def layout_block(cout: int, dtype: torch.dtype) -> int:
+    """BN, the output channels of one block of K6's device layout for a
+    conv of ``cout`` channels in ``dtype`` (``make_plan`` in
+    csrc/affine_conv3.cu): the smallest of 32, 64, 128, 256 (bf16) or 32,
+    64 (f32) that holds Cout, else the largest."""
+    widths = (32, 64, 128, 256) if dtype == torch.bfloat16 else (32, 64)
+    return next((b for b in widths if cout <= b), widths[-1])
+
+
+def device_weight_layout(w9: torch.Tensor, skip_w: Optional[torch.Tensor], bn: int, ck: int,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """w9 (Cout, 9 * Cin) and the 1x1 skip's skip_w (Cout, Cs) or None in the
+    order K6 reads them, flat, in ``dtype``: per block of ``bn`` output
+    channels, the conv's input channels in chunks of ``ck`` (each chunk's
+    nine taps), then the skip's chunks; channels past Cin, Cs or Cout are 0.
+    A chunk is [tap][ck // 8][bn][8] in bf16 (each tap a K-major wgmma B
+    operand of 16-byte core-matrix rows), [tap][ck][bn] in f32."""
+    co, k9 = w9.shape
+    cin = k9 // 9
+    nb, qc = -(-co // bn), -(-cin // ck)
+    bf16 = dtype == torch.bfloat16
+    wt = F.pad(w9.to(dtype).reshape(co, 9, cin), (0, qc * ck - cin, 0, 0, 0, nb * bn - co)).reshape(nb, bn, 9, qc, ck)
+    wt = wt.reshape(nb, bn, 9, qc, ck // 8, 8).permute(0, 3, 2, 4, 1, 5) if bf16 else wt.permute(0, 3, 2, 4, 1)
+    parts = [wt.reshape(nb, -1)]
+    if skip_w is not None:
+        cs = skip_w.shape[1]
+        qs = -(-cs // ck)
+        st = F.pad(skip_w.to(dtype), (0, qs * ck - cs, 0, nb * bn - co)).reshape(nb, bn, qs, ck)
+        st = st.reshape(nb, bn, qs, ck // 8, 8).permute(0, 2, 3, 1, 4) if bf16 else st.permute(0, 2, 3, 1)
+        parts.append(st.reshape(nb, -1))
+    return torch.cat(parts, dim=1).reshape(-1)
+
+
 def _channels_last(t: torch.Tensor) -> bool:
+    """NHWC memory viewed as NCHW; a dimension of size 1 may have any stride."""
     n, c, h, w = t.shape
-    return t.stride() == (h * w * c, 1, w * c, c)
+    return all(size == 1 or stride == want for size, stride, want in zip(t.shape, t.stride(), (h * w * c, 1, w * c, c)))
 
 
 def _check(x, scale, shift, w9, bias, skip, skip_w) -> None:
@@ -206,10 +341,10 @@ def _check(x, scale, shift, w9, bias, skip, skip_w) -> None:
     elif skip_w is not None:
         raise ValueError("skip_w without skip")
     for t in (x, scale, shift, w9, bias, skip, skip_w):
-        if t is None:
-            continue
-        if t.device != x.device:
+        if t is not None and t.device != x.device:
             raise ValueError(f"a tensor on {t.device}, x on {x.device}")
-        # The kernel loads x, skip and the weights 16 bytes at a time.
-        if t.data_ptr() % 16:
+    # The kernel loads x and skip 16 bytes at a time (the weights' device
+    # layout is a tensor of its own).
+    for t in (x, scale, shift, bias, skip):
+        if t is not None and t.data_ptr() % 16:
             raise ValueError("fused_affine_conv3_nchw: tensors must be 16-byte aligned")

@@ -61,7 +61,7 @@ def poly_sin_forward(a: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
         raise ValueError(f"poly_sin_forward: unsupported device {a.device}")
     code = _check(a, out_dtype)
     out = torch.empty(a.shape, dtype=out_dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    stream = cuda_build.current_stream(a.device)
     status = cuda_build.library().tha4_poly_sin_forward(a.data_ptr(), out.data_ptr(), a.numel(), code, stream)
     cuda_build.check(status, "poly_sin_forward")
     poly_sin_forward.launches += 1
@@ -80,7 +80,7 @@ def poly_sin_backward(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"poly_sin_backward: unsupported device {a.device}")
     code = _check(a, g.dtype, g)
     da = torch.empty_like(a)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    stream = cuda_build.current_stream(a.device)
     status = cuda_build.library().tha4_poly_sin_backward(a.data_ptr(), g.data_ptr(), da.data_ptr(), a.numel(), code, stream)
     cuda_build.check(status, "poly_sin_backward")
     poly_sin_backward.launches += 1

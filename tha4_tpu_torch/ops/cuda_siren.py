@@ -176,7 +176,7 @@ def sine_chain_t(
     _check(prev, pos_t, pose, chain)
     n, hw = pose.shape[0], pos_t.shape[1]
     out = torch.empty((n, chain.out_channels, hw), dtype=chain.dtype, device=pos_t.device)
-    stream = torch.cuda.current_stream(pos_t.device).cuda_stream
+    stream = cuda_build.current_stream(pos_t.device)
     status = cuda_build.library().tha4_sine_chain_forward(
         None if prev is None else prev.data_ptr(), int(prev is not None),
         0 if prev is None else prev.shape[1],
@@ -322,7 +322,7 @@ def sine_chain_t_bwd(
     scratch = torch.empty((blocks, slab), dtype=torch.float32, device=pos_t.device)
     grads = torch.empty(slab, dtype=torch.float32, device=pos_t.device)
     dprev = None if prev is None else torch.empty_like(prev)
-    stream = torch.cuda.current_stream(pos_t.device).cuda_stream
+    stream = cuda_build.current_stream(pos_t.device)
     status = cuda_build.library().tha4_sine_chain_backward(
         None if prev is None else prev.data_ptr(), int(prev is not None), cp,
         pos_t.data_ptr(), pose.data_ptr(), pose_dim,

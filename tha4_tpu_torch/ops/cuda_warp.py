@@ -90,24 +90,23 @@ def grid_sample_fast(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
     anything the kernel does not take raises.  No autograd, on either
-    device: ``grid_sample_train`` is the differentiable warp."""
+    device: ``grid_sample_train`` is the differentiable warp.  The kernel
+    takes a few microseconds at a frame's 512^2, about what this wrapper
+    costs the host, so the CUDA path reads each tensor attribute once."""
     if torch.is_grad_enabled() and (grid.requires_grad or image.requires_grad):
         raise RuntimeError("grid_sample_fast has no gradient: warp a grid that requires grad "
                            "with grid_sample_train (ops.warp.apply_grid_change routes it)")
-    if image.device.type == "cpu":
-        return grid_sample_bilinear_border(image, grid)
-    if image.device.type != "cuda":
-        raise ValueError(f"grid_sample_fast: unsupported device {image.device}")
-    _check(image, grid)
-    n, h, w, _ = image.shape
-    ho, wo = grid.shape[1], grid.shape[2]
-    out = torch.empty((n, ho, wo, 4), dtype=image.dtype, device=image.device)
-    stream = torch.cuda.current_stream(image.device).cuda_stream
-    status = cuda_build.library().tha4_grid_sample_forward(
-        image.data_ptr(), grid.data_ptr(), out.data_ptr(), n, h, w, ho, wo,
-        int(image.dtype == torch.bfloat16), stream,
-    )
-    cuda_build.check(status, "grid_sample_fast")
+    device = image.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return grid_sample_bilinear_border(image, grid)
+        raise ValueError(f"grid_sample_fast: unsupported device {device}")
+    n, h, w, ho, wo, is_bf16 = _check(image, grid)
+    out = image.new_empty((n, ho, wo, 4))
+    status = cuda_build.library().tha4_grid_sample_forward(image.data_ptr(), grid.data_ptr(), out.data_ptr(), n, h, w, ho, wo,
+                                                 is_bf16, cuda_build.current_stream(device))
+    if status:
+        cuda_build.check(status, "grid_sample_fast")
     grid_sample_fast.launches += 1
     return out
 
@@ -123,16 +122,14 @@ def grid_sample_corners(image: torch.Tensor, grid: torch.Tensor) -> Tuple[torch.
         return grid_sample_corners_plain(image, grid)
     if image.device.type != "cuda":
         raise ValueError(f"grid_sample_corners: unsupported device {image.device}")
-    _check(image, grid)
-    n, h, w, _ = image.shape
-    ho, wo = grid.shape[1], grid.shape[2]
+    n, h, w, ho, wo, is_bf16 = _check(image, grid)
     out = torch.empty((n, ho, wo, 4), dtype=image.dtype, device=image.device)
     dx = torch.empty((n, ho, wo, 4), dtype=torch.float32, device=image.device)
     dy = torch.empty_like(dx)
-    stream = torch.cuda.current_stream(image.device).cuda_stream
+    stream = cuda_build.current_stream(image.device)
     status = cuda_build.library().tha4_grid_sample_corners_forward(
         image.data_ptr(), grid.data_ptr(), out.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        n, h, w, ho, wo, int(image.dtype == torch.bfloat16), stream,
+        n, h, w, ho, wo, is_bf16, stream,
     )
     cuda_build.check(status, "grid_sample_corners")
     grid_sample_corners.launches += 1
@@ -184,19 +181,26 @@ def grid_sample_train(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return GridSampleFunction.apply(image, grid)
 
 
-def _check(image: torch.Tensor, grid: torch.Tensor) -> None:
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(image: torch.Tensor, grid: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
+    """Raise on what the kernels do not take; else (N, H, W, Ho, Wo, is_bf16)."""
+    ishape, gshape, dtype = image.shape, grid.shape, image.dtype
     if grid.device != image.device:
         raise ValueError(f"grid on {grid.device}, image on {image.device}")
-    if image.dim() != 4 or image.shape[3] != 4:
-        raise ValueError(f"image must be (N, H, W, 4), got {tuple(image.shape)}")
-    if image.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"image dtype must be float32 or bfloat16, got {image.dtype}")
-    if grid.dim() != 4 or grid.shape[0] != image.shape[0] or grid.shape[3] != 2:
-        raise ValueError(f"grid must be (N, Ho, Wo, 2) with N = {image.shape[0]}, got {tuple(grid.shape)}")
+    if len(ishape) != 4 or ishape[3] != 4:
+        raise ValueError(f"image must be (N, H, W, 4), got {tuple(ishape)}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"image dtype must be float32 or bfloat16, got {dtype}")
+    if len(gshape) != 4 or gshape[0] != ishape[0] or gshape[3] != 2:
+        raise ValueError(f"grid must be (N, Ho, Wo, 2) with N = {ishape[0]}, got {tuple(gshape)}")
     if grid.dtype != torch.float32:
         raise ValueError(f"grid dtype must be float32, got {grid.dtype}")
     if not (image.is_contiguous() and grid.is_contiguous()):
         raise ValueError("image and grid must be contiguous")
     # One texel is one 16-byte (f32) or 8-byte (bf16) load; a grid point 8 bytes.
-    if image.data_ptr() % (4 * image.element_size()) or grid.data_ptr() % 8:
+    is_bf16 = int(dtype == torch.bfloat16)
+    if image.data_ptr() % (8 if is_bf16 else 16) or grid.data_ptr() % 8:
         raise ValueError("image or grid is not aligned for vector loads")
+    return ishape[0], ishape[1], ishape[2], gshape[1], gshape[2], is_bf16

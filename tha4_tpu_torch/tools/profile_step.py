@@ -24,7 +24,15 @@ the profiler, and their ratio, the busy share.
 * ``body_step_ms``: one bf16 body step at B = 8, host clock to
   ``torch.cuda.synchronize()``, the median of 10 after 3 warm-up steps;
   ``body_teacher_ms``, the CUDA-event median of its teacher labels;
-* ``k6_launches_per_call`` where the tree has K6 (``ops.cuda_conv``).
+* ``k6_launches_per_call`` where the tree has K6 (``ops.cuda_conv``);
+* ``teacher_launches``: the device operations (kernels, copies, fills) one
+  ``mode_07.compute_outputs`` call enqueues at B = 1 and 8, bf16 and f32,
+  counted by ``torch.profiler``;
+* ``k2_b2b_ms``: K2 (``ops.cuda_warp.grid_sample_fast``) at the frame's
+  512^2 x 4 warp, B = 1, f32 and bf16, one event pair around 200 calls back
+  to back over 200: the rate a caller gets where the wrapper's host work
+  is slower than the kernel; ``grid_sample_b2b_ms`` the same for
+  ``F.grid_sample``.
 
 ``--root`` imports ``tha4_tpu_torch`` from another checkout (run the file
 by its path then, not with ``-m``), so that one command can time two
@@ -60,6 +68,7 @@ GROUPS = (
     ("K3 warp corners", ("grid_sample_corners_kernel",)),
     ("K5 poly_sin", ("poly_sin_",)),
     ("K6 affine_silu_conv3", ("affine_silu_conv3",)),
+    ("K6 fold", ("group_norm_stats", "group_norm_fold")),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "nchwToNhwc", "nhwcToNchw", "xmma")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "Kernel2", "sm90_")),
     ("reduction", ("reduce",)),
@@ -130,6 +139,49 @@ def _event_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _back_to_back_ms(fn, reps: int = 200, warmup: int = 5) -> float:
+    """One event pair around ``reps`` calls of ``fn`` back to back, over
+    ``reps``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _k2_back_to_back() -> dict:
+    """``k2_b2b_ms`` and ``grid_sample_b2b_ms``, f32 and bf16."""
+    from tha4_tpu_torch.ops import cuda_warp, warp
+
+    grid = warp.identity_grid(512, 512, "cuda")[None].contiguous()
+    image32 = (torch.rand((1, 512, 512, 4), generator=torch.Generator().manual_seed(SEED)) * 2.0 - 1.0).cuda()
+    result = {"k2_b2b_ms": {}, "grid_sample_b2b_ms": {}}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        image, grid_t = image32.to(dtype), grid.to(dtype)
+        result["k2_b2b_ms"][tag] = _back_to_back_ms(lambda: cuda_warp.grid_sample_fast(image, grid))
+        result["grid_sample_b2b_ms"][tag] = _back_to_back_ms(lambda: torch.nn.functional.grid_sample(
+            image.permute(0, 3, 1, 2), grid_t, mode="bilinear", padding_mode="border", align_corners=False))
+    return result
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) one ``fn()`` enqueues,
+    by ``torch.profiler`` after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def _time_body(label: str) -> dict:
     """The ``--time`` line: the mode_07 teacher and the bf16 body step."""
     from tha4_tpu_torch.distiller import recipes
@@ -142,7 +194,7 @@ def _time_body(label: str) -> dict:
         k6 = cuda_conv.fused_affine_conv3_nchw
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    result = {"label": label, "card": card, "teacher_ms": {}}
+    result = {"label": label, "card": card, "teacher_ms": {}, "teacher_launches": {}}
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
             teacher, image, poses, step = _setup("body", dtype, workdir)
@@ -154,6 +206,7 @@ def _time_body(label: str) -> dict:
                     mode_07.compute_outputs(teacher, images, p)
                     result["k6_launches_per_call"] = k6.launches
                 result["teacher_ms"][f"{tag}_b{n}"] = _event_ms(lambda: mode_07.compute_outputs(teacher, images, p), TEACHER_ITERS)
+                result["teacher_launches"][f"{tag}_b{n}"] = device_ops(lambda: mode_07.compute_outputs(teacher, images, p))
         if dtype == torch.float32:
             del teacher, step
             torch.cuda.empty_cache()
@@ -167,6 +220,7 @@ def _time_body(label: str) -> dict:
     result["body_step_ms"] = statistics.median(times[3:])
     with torch.no_grad():
         result["body_teacher_ms"] = _event_ms(lambda: recipes.body_teacher_targets(teacher, image, poses[0], torch.bfloat16), 5)
+        result.update(_k2_back_to_back())
     return result
 
 
