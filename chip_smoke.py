@@ -9,7 +9,9 @@ Phases, one or more lines each:
 2. build: the kernels of ``tha4_tpu_torch/csrc`` from source, with the
    seconds taken and nvcc's register / spill report per kernel;
 3. K1 (``sine_chain_t``) against its plain PyTorch version at the four call
-   shapes of one frame, f32 and bf16, with max-abs error and median times;
+   shapes of one frame, f32 and bf16, with max-abs error, median times, the
+   restated bound (the products at the peak for their type against the
+   fast_sin epilogue on the CUDA cores, each printed) and its share;
 4. K2 (``grid_sample_fast``) against its plain version at 512^2 x 4, f32 and
    bf16, on a smooth grid and on one with displacements past 150 px, timed
    two ways beside ``F.grid_sample``: the card's own time (a CUDA graph of
@@ -27,7 +29,7 @@ Phases, one or more lines each:
 6. K4 (``sine_chain_t_bwd``) against its plain version at the face
    student's training shape (N = 8, 128^2) and at body level 1 (N = 1,
    256^2, with prev), f32 and bf16: every gradient within its bar, two
-   calls bit-identical, median times;
+   calls bit-identical, median times, the restated bound and its share;
 7. the training path: a seeded full-width random mode_12 teacher and the
    synthetic character, mask and ``DistillerConfig`` (written to a
    temporary directory) train the face student through
@@ -228,6 +230,14 @@ POSES = 4
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# The CUDA cores' f32 instruction rate: the 67 TFLOP/s count an FMA as two.
+CUDA_CORE_OPS_PER_S = PEAK_FLOPS["f32"] / 2
+# f32 operations of one sine layer output (csrc/common.cuh fast_sin; the _rn
+# intrinsics keep every multiply and add its own instruction): the bias add,
+# the omega multiply, the reduction (6), r^2, the polynomial (10) and its
+# last multiply; fast_cos adds one.
+SIN_OPS = 20
+COS_OPS = SIN_OPS + 1
 # The keys every entry of the kernels line has.
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -314,6 +324,33 @@ def _chain_macs(chain, n: int, hw: int) -> int:
     return sum(int(ci) * int(co) for ci, co, _, _ in chain.specs) * n * hw
 
 
+def _chain_sines(chain, n: int, hw: int) -> int:
+    """The sine layers' outputs over n x hw pixels: one fast_sin each."""
+    return int(chain.specs[: chain.num_sine, 1].sum()) * n * hw
+
+
+def _chain_bound(nbytes: float, macs: float, sine_ops: float, tag: str) -> dict:
+    """K1's and K4's bound, restated: the bytes over the memory rate, the
+    products (2 x multiply-adds) over the peak for their type, and the sine
+    epilogue's f32 operations over the CUDA cores' rate.  In bf16 the
+    products run on the tensor cores beside the epilogue, so the larger of
+    the three bounds; in f32 both run on the CUDA cores, so their sum
+    against the bytes."""
+    parts = {
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "products_ms": 2.0 * macs / PEAK_FLOPS[tag] * 1e3,
+        "epilogue_ms": sine_ops / CUDA_CORE_OPS_PER_S * 1e3,
+    }
+    ops_ms = parts["products_ms"] + parts["epilogue_ms"] if tag == "f32" else max(parts["products_ms"], parts["epilogue_ms"])
+    bound = max(parts["bytes_ms"], ops_ms)
+    return {"bound_ms": bound, "bound_by": "bytes" if parts["bytes_ms"] >= ops_ms else "operations", **parts}
+
+
+def _bound_text(b: dict) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms (products {b['products_ms']:.4f}, sine epilogue {b['epilogue_ms']:.4f}, "
+            f"bytes {b['bytes_ms']:.4f})")
+
+
 def _bench_pose(pose_parameters, i: int) -> np.ndarray:
     """The animated sweep of bench.py:59-72: blink, talk, head and body
     sway, breathing."""
@@ -378,7 +415,7 @@ def phase_k1(torch, face, body) -> dict:
     from tha4_tpu_torch.ops import cuda_siren
 
     gen = torch.Generator().manual_seed(SEED + 1)
-    results = {"f32_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
+    results = {"f32_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}, "calls": {}}
     face_cfg, body_cfg = face.cfg, body.cfg
     for dtype, tag in [(torch.float32, "f32"), (torch.bfloat16, "bf16")]:
         chains = [face.pack(dtype, "cuda")] + body.pack(dtype, "cuda")
@@ -389,12 +426,13 @@ def phase_k1(torch, face, body) -> dict:
             ("L2", chains[3], body_cfg.levels[2].image_size, body_cfg.levels[2].intermediate_channels, body_cfg.pose_size),
         ]
         k_total = p_total = 0.0
-        nbytes = macs = 0
+        nbytes = macs = sines = 0
         for name, chain, size, cp, pose_dim in calls:
             prev, pos, pose = _level_inputs(torch, gen, size, cp, pose_dim, dtype)
             out = cuda_siren.sine_chain_t(prev, pos, pose, chain)
-            nbytes += _nbytes(prev, pos, pose, chain.w, chain.b, out)
-            macs += _chain_macs(chain, 1, size * size)
+            call_bytes = _nbytes(prev, pos, pose, chain.w, chain.b, out)
+            call_macs, call_sines = _chain_macs(chain, 1, size * size), _chain_sines(chain, 1, size * size)
+            nbytes, macs, sines = nbytes + call_bytes, macs + call_macs, sines + call_sines
             ref = cuda_siren.chain_t_plain(prev, pos, pose, chain)
             torch.cuda.synchronize()
             if out.shape != ref.shape or out.dtype != dtype:
@@ -406,16 +444,19 @@ def phase_k1(torch, face, body) -> dict:
             p_ms = _time_ms(lambda: cuda_siren.chain_t_plain(prev, pos, pose, chain))
             k_total += k_ms
             p_total += p_ms
+            bound = _chain_bound(call_bytes, call_macs, call_sines * SIN_OPS, tag)
+            results["calls"][f"{name}_{tag}"] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, **bound}
             shape = " -> ".join(str(int(c)) for c in [chain.specs[0, 0]] + list(chain.specs[:, 1]))
             print(f"K1 {name:4s} {tag:4s} {size}^2 {shape}: max_abs_err {err:.3e} (bar {bar:.1e}), "
-                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; {_bound_text(bound)}, share {bound['bound_ms'] / k_ms:.3f}")
             if not err <= bar:
                 raise AssertionError(f"K1 {name} {tag}: max_abs_err {err} over the bar {bar}")
             results[f"{tag}_err"] = max(results[f"{tag}_err"], err)
         results["ms"][tag], results["plain_ms"][tag] = k_total, p_total
-        results["bound"][tag] = _bound(nbytes, 2.0 * macs, tag)
-        print(f"K1 per frame {tag}: kernel {k_total:.4f} ms, plain {p_total:.4f} ms; bound {results['bound'][tag]['bound_ms']:.4f} ms "
-              f"({results['bound'][tag]['bound_by']}: {macs / 1e9:.2f} G multiply-adds, {nbytes / 1e6:.1f} MB)")
+        bound = results["bound"][tag] = _chain_bound(nbytes, macs, sines * SIN_OPS, tag)
+        print(f"K1 per frame {tag}: kernel {k_total:.4f} ms, plain {p_total:.4f} ms; {_bound_text(bound)}, "
+              f"share {bound['bound_ms'] / k_total:.3f} ({bound['bound_by']}: {macs / 1e9:.2f} G multiply-adds, "
+              f"{sines / 1e6:.1f} M fast_sin, {nbytes / 1e6:.1f} MB)")
     return results
 
 
@@ -608,7 +649,7 @@ def phase_k4(torch, face, body) -> dict:
     from tha4_tpu_torch.ops import cuda_siren
 
     gen = torch.Generator().manual_seed(SEED + 3)
-    results = {"f32_err": 0.0, "f32_abs_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
+    results = {"f32_err": 0.0, "f32_abs_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}, "calls": {}}
     level1 = body.cfg.levels[1]
     for dtype, tag, bar in [(torch.float32, "f32", K4_F32_ATOL), (torch.bfloat16, "bf16", K4_BF16_ATOL)]:
         cases = [
@@ -641,20 +682,24 @@ def phase_k4(torch, face, body) -> dict:
                     results["f32_abs_err"] = max(results["f32_abs_err"], abs_err)
             k_ms = _time_ms(lambda: cuda_siren.sine_chain_t_bwd(*args), iters=10)
             p_ms = _time_ms(lambda: cuda_siren.chain_t_bwd_plain(*args), iters=10)
+            # Three chain products (the forward recomputed, g through each
+            # layer, the weight gradients); a fast_sin and a fast_cos per
+            # sine-layer output.
+            bound = _chain_bound(_nbytes(prev, pos, pose, chain.w, chain.b, g, *first), 3 * _chain_macs(chain, n, hw),
+                                 _chain_sines(chain, n, hw) * (SIN_OPS + COS_OPS), tag)
             shape = " -> ".join(str(int(c)) for c in [chain.specs[0, 0]] + list(chain.specs[:, 1]))
             print(f"K4 {name:4s} {tag:4s} N={n} {size}^2 {shape}: scaled err "
                   + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                  + f" (bar {bar:.1e}); two calls bit-identical; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                  + f" (bar {bar:.1e}); two calls bit-identical; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+                  + f"{_bound_text(bound)}, share {bound['bound_ms'] / k_ms:.3f}")
             worst = max(errs.values())
             if not worst <= bar:
                 raise AssertionError(f"K4 {name} {tag}: scaled error {worst} over the bar {bar}")
             results[f"{tag}_err"] = max(results[f"{tag}_err"], worst)
+            results["calls"][f"{name}_{tag}"] = {"ms": k_ms, "plain_ms": p_ms, "max_scaled_err": worst,
+                                                 "bit_identical": True, **bound}
             if name == "face":
-                results["ms"][tag], results["plain_ms"][tag] = k_ms, p_ms
-                # Three chain products: the forward recomputed, g through
-                # each layer, and the weight gradients.
-                results["bound"][tag] = _bound(_nbytes(prev, pos, pose, chain.w, chain.b, g, *first),
-                                               2.0 * 3 * _chain_macs(chain, n, hw), tag)
+                results["ms"][tag], results["plain_ms"][tag], results["bound"][tag] = k_ms, p_ms, bound
     return results
 
 
@@ -1707,7 +1752,10 @@ def main() -> int:
                 **k1["bound"]["bf16"], "library_ms": None,
                 "max_abs_err_bf16": k1["bf16_err"], "ms_f32": k1["ms"]["f32"], "plain_ms_f32": k1["plain_ms"]["f32"],
                 "bound_ms_f32": k1["bound"]["f32"]["bound_ms"],
-                "timed": "sum of the four calls of one frame (face, L0, L1, L2), bf16; *_f32 in f32",
+                "timed": "sum of the four calls of one frame (face, L0, L1, L2), bf16; *_f32 in f32; bound: the larger "
+                         "of the bytes, the products at the peak for their type and the sine epilogue on the CUDA "
+                         "cores (f32: products plus epilogue); calls: each call and dtype",
+                "bound_share": k1["bound"]["bf16"]["bound_ms"] / k1["ms"]["bf16"], "calls": k1["calls"],
                 "launches_training": training["launches"]["sine_chain_t"],
             },
             k2_entry,
@@ -1719,7 +1767,10 @@ def main() -> int:
                 **k4["bound"]["bf16"], "library_ms": None,
                 "max_scaled_err": k4["f32_err"], "max_scaled_err_bf16": k4["bf16_err"],
                 "ms_f32": k4["ms"]["f32"], "plain_ms_f32": k4["plain_ms"]["f32"], "bound_ms_f32": k4["bound"]["f32"]["bound_ms"],
-                "timed": "one face-student backward, N=8, 128^2, 41->128x8->4, bf16; *_f32 in f32; launches from the training run",
+                "timed": "one face-student backward, N=8, 128^2, 41->128x8->4, bf16; *_f32 in f32; launches from the training "
+                         "run; bound as K1's, three chain products and a fast_sin and fast_cos per sine output; calls: "
+                         "face and L1, each dtype",
+                "bound_share": k4["bound"]["bf16"]["bound_ms"] / k4["ms"]["bf16"], "calls": k4["calls"],
             },
             {
                 "name": "grid_sample_corners", "route": "cuda", "source": "tha4_tpu_torch/csrc/warp.cu",

@@ -188,8 +188,62 @@ def test_jax_exported_pt_poses_through_character_model(slice_run, jax_exported_m
 
 
 def test_npz_checkpoints_are_refused_clearly(tmp_path):
-    with pytest.raises(NotImplementedError, match="npz"):
-        mode_14.create_poser({mode_14.KEY_FACE_MORPHER: str(tmp_path / "face.npz")}, device="cpu")
+    """A .npz that the JAX package's trainer wrote (its params pytree,
+    flattened by path) is not the port's: it raises and says why."""
+    from tha4_tpu.training import checkpoint as jckpt
+
+    jface_cfg, _ = _jax_cfgs()
+    path = str(tmp_path / "module_module.npz")
+    jckpt._save_npz(path, jsiren.siren_face_morpher_init(jax.random.PRNGKey(0), jface_cfg))
+    with pytest.raises(ValueError, match="do not load each other's .npz checkpoints"):
+        mode_14.create_poser({mode_14.KEY_FACE_MORPHER: path}, device="cpu")
+
+
+def test_port_npz_of_the_other_student_is_refused_as_such(tmp_path):
+    """The port's own face checkpoint given as the body student raises as
+    not a port body checkpoint, without blaming the JAX package."""
+    from tha4_tpu_torch.training import checkpoint as ckpt
+
+    face_cfg, _ = _port_cfgs()
+    face = siren.SirenFaceMorpher(face_cfg, generator=torch.Generator().manual_seed(6))
+    ckpt.save_state(str(tmp_path / "face"), {"module": face}, {}, 0, 0)
+    path = str(tmp_path / "face" / "module_module.npz")
+    assert isinstance(mode_14._load_student(path, "face"), siren.SirenFaceMorpher)
+    with pytest.raises(ValueError, match="not a port body student checkpoint") as info:
+        mode_14._load_student(path, "body")
+    assert "JAX" not in str(info.value)
+
+
+def test_port_npz_students_pose_as_their_exported_pt(tmp_path):
+    """After one training step each, the students' checkpoints
+    (module_module.npz, as the trainer writes them) and their exported .pt
+    files give bit-equal frames through CharacterModel.get_poser."""
+    from tha4_tpu_torch.training import checkpoint as ckpt
+
+    face_cfg, body_cfg = _port_cfgs()
+    gen = torch.Generator().manual_seed(6)
+    face, body = siren.SirenFaceMorpher(face_cfg, generator=gen), siren.SirenMorpher(body_cfg, generator=gen)
+    pose = torch.from_numpy(_random_pose(np.random.default_rng(6), n=2))
+    files = {}
+    for name, module, loss in [
+        ("face", face, lambda: siren.siren_face_morpher_train_apply(face, pose[:, : face_cfg.pose_size], torch.float32).square().mean()),
+        ("body", body, lambda: siren.siren_morpher_train_head(body, pose, torch.float32).square().mean()),
+    ]:
+        optimizer = torch.optim.Adam(module.parameters(), lr=1e-3)
+        loss().backward()
+        optimizer.step()
+        ckpt.save_state(str(tmp_path / name), {"module": module}, {"module": optimizer}, 2, 0)
+        files[name] = (str(tmp_path / name / "module_module.npz"), str(tmp_path / f"{name}.pt"))
+        export_torch.save_module_pt(module, files[name][1])
+    png = str(tmp_path / "character.png")
+    PIL.Image.fromarray(synthetic_character_image(512, seed=3), mode="RGBA").save(png)
+    frames = []
+    for k in range(2):
+        model = CharacterModel(png, files["face"][k], files["body"][k])
+        outs = model.get_poser(torch.float32, "cpu").get_posing_outputs(model.get_character_image(), pose[:1].numpy())
+        frames.append([o.numpy() for o in outs])
+    for name, a, b in zip(OUTPUT_NAMES, *frames):
+        np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 @pytest.mark.parametrize("bf16", [False, True])

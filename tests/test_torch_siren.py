@@ -17,6 +17,7 @@ import torch
 
 from tha4_tpu.ops import pallas_siren
 from tha4_tpu_torch.ops import cuda_siren
+from test_torch_siren_fold import chain_t_folded
 
 torch.set_num_threads(2)
 
@@ -155,3 +156,80 @@ def test_wrapper_refuses_other_devices():
     chain = _pack(layers, final, torch.float32)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_siren.sine_chain_t(None, torch.from_numpy(pos).to("meta"), torch.from_numpy(pose), chain)
+
+
+def _port_folded(prev, pos, pose, layers, final, dtype, omega=30.0):
+    chain = _pack(layers, final, dtype)
+    prev_t = None if prev is None else torch.from_numpy(prev).to(dtype)
+    out = chain_t_folded(prev_t, torch.from_numpy(pos).to(dtype), torch.from_numpy(pose), chain, omega)
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("with_prev,with_final", PREV_FINAL)
+def test_folded_plain_matches_interpreted_pallas_f32(interpret, with_prev, with_final):
+    """The bf16 kernels' layer 0, pose columns and bias folded into one f32
+    vector and the position columns into two FMAs, is the same function:
+    only the order of the f32 sums moves, so the f32 bar of two valid
+    orders holds."""
+    args = _case(7, with_prev, with_final)
+    ref = _jax(pallas_siren.fused_sine_chain_t, *args, jnp.float32)
+    np.testing.assert_allclose(_port_folded(*args, torch.float32), ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("with_prev,with_final", PREV_FINAL)
+def test_folded_plain_matches_interpreted_pallas_bf16(interpret, with_prev, with_final):
+    """The bars of test_plain_matches_interpreted_pallas_bf16: the fold
+    reorders f32 sums of the same exact bf16 products."""
+    args = _case(8, with_prev, with_final)
+    ref = _jax(pallas_siren.fused_sine_chain_t, *args, jnp.bfloat16)
+    err = np.abs(_port_folded(*args, torch.bfloat16) - ref)
+    assert np.mean(err == 0.0) >= 0.99, np.mean(err == 0.0)
+    assert err.max() <= 3.2e-2, err.max()
+    assert err.mean() <= 1e-4, err.mean()
+
+
+def _untile(flat, rows, cols):
+    """Inverse of one matrix's tiles (csrc/sine_chain_tc.cuh): row chunks of
+    128, column blocks of 64, each stored [column group of 8][rows][8]."""
+    m = np.zeros((rows, cols), dtype=flat.dtype)
+    i = 0
+    for n0 in range(0, rows, 128):
+        nb = min(128, rows - n0)
+        for k0 in range(0, cols, 64):
+            kb = min(64, cols - k0)
+            m[n0 : n0 + nb, k0 : k0 + kb] = flat[i : i + nb * kb].reshape(kb // 8, nb, 8).transpose(1, 0, 2).reshape(nb, kb)
+            i += nb * kb
+    return m, i
+
+
+# The face student and the three body levels at their shipped widths (the
+# last level with its head), and a ragged chain.
+LEVEL_DIMS = [
+    ([41] + [128] * 8 + [4], 1),
+    ([47, 360, 360, 180], 0),
+    ([227, 180, 180, 90], 0),
+    ([137, 90, 90, 90, 7], 1),
+    ([15, 370, 8, 3], 1),
+]
+
+
+@pytest.mark.parametrize("dims,head", LEVEL_DIMS)
+def test_tile_layout_round_trips_to_each_layer(dims, head):
+    """Read back, the bf16 tile layout holds every layer's (Co, Ci) matrix
+    padded with zeros to multiples of 16 (the forward tiles), then every
+    layer's transpose from the last (the backward tiles), and nothing else."""
+    rng = np.random.default_rng(len(dims))
+    layers = _layers(rng, dims)
+    chain = _pack(layers[: len(layers) - head], layers[-1] if head else None, torch.bfloat16)
+    flat = chain.tiles.float().numpy()
+    mats = [chain.layer(i)[0].float().numpy() for i in range(chain.num_layers)]
+    pad = lambda x: -(-x // 16) * 16  # noqa: E731
+    offset = 0
+    for m in mats + [m.T for m in reversed(mats)]:
+        got, used = _untile(flat[offset:], pad(m.shape[0]), pad(m.shape[1]))
+        want = np.zeros_like(got)
+        want[: m.shape[0], : m.shape[1]] = m
+        np.testing.assert_array_equal(got, want)
+        offset += used
+    assert offset == flat.size
+    assert cuda_siren.pack_chain([(torch.zeros(4, 5), torch.zeros(4))], None, torch.float32).tiles is None

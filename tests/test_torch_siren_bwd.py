@@ -18,6 +18,7 @@ import torch
 
 from tha4_tpu.ops import pallas_siren
 from tha4_tpu_torch.ops import cuda_siren
+from test_torch_siren_fold import chain_t_bwd_folded
 
 torch.set_num_threads(2)
 
@@ -224,3 +225,35 @@ def test_bwd_shared_memory_fits_the_face_and_level_shapes():
     assert cuda_siren.bwd_smem_bytes(chain([227, 180, 180, 90], 0), 227) <= 232448
     assert cuda_siren.bwd_smem_bytes(chain([137, 90, 90, 90, 7], 1), 137) <= 232448
     assert cuda_siren.bwd_smem_bytes(chain([47, 360, 360, 180], 0), 47) > 232448
+
+
+def _port_bwd_folded(prev, pos, pose, layers, final, cot, dtype, omega):
+    chain = _chain(layers, final, dtype)
+    prev_t = None if prev is None else torch.from_numpy(prev).to(dtype)
+    dprev, dpose, dw, db = chain_t_bwd_folded(
+        prev_t, torch.from_numpy(pos).to(dtype), torch.from_numpy(pose), chain, torch.from_numpy(cot).to(dtype), omega
+    )
+    dws = [dw[wo : wo + co * ci].view(co, ci).T.numpy() for ci, co, wo, bo in chain.specs]
+    dbs = [db[bo : bo + co].numpy() for ci, co, wo, bo in chain.specs]
+    return _flat(None if dprev is None else dprev.float().numpy(), dpose.numpy(), dws, dbs)
+
+
+@pytest.mark.parametrize("with_prev,with_final", PREV_FINAL)
+def test_folded_plain_bwd_matches_interpreted_pallas_f32(interpret, with_prev, with_final):
+    """The bf16 kernels' order: layer 0's forward folded, dpose as W_pose^T
+    times layer 0's summed rounded g_a (the same sum by linearity).  Only f32
+    sum orders move: the omega = 30 bar of two valid orders."""
+    args = _case(7, with_prev, with_final)
+    _assert_scaled(_port_bwd_folded(*args, torch.float32, 30.0), _jax_kernel_bwd(*args, jnp.float32, 30.0), 1e-4)
+
+
+def test_folded_plain_bwd_matches_interpreted_pallas_bf16(interpret):
+    """The bar of test_plain_bwd_matches_interpreted_pallas_bf16: one bf16
+    step of each gradient's largest magnitude."""
+    args = _case(2, True, True, widths=(24, 16))
+    _assert_scaled(_port_bwd_folded(*args, torch.bfloat16, 30.0), _jax_kernel_bwd(*args, jnp.bfloat16, 30.0), 2.0**-8)
+
+
+def test_folded_plain_bwd_real_level_shapes(interpret):
+    args = _case(5, True, False, n=2, hw=1024, pose_dim=45, cp=12, widths=(32, 32, 16))
+    _assert_scaled(_port_bwd_folded(*args, torch.float32, 30.0), _jax_kernel_bwd(*args, jnp.float32, 30.0), 1e-3)

@@ -67,15 +67,21 @@ def body_config_from_state_dict(sd: Dict[str, torch.Tensor]) -> siren.SirenMorph
     )
 
 
-def load_face_morpher(path: str) -> siren.SirenFaceMorpher:
-    sd = load_torch_state_dict(path)
+def face_morpher_from_state_dict(sd: Dict[str, torch.Tensor]) -> siren.SirenFaceMorpher:
     module = siren.SirenFaceMorpher(face_config_from_state_dict(sd))
     module.load_state_dict(sd)
     return module
 
 
-def load_body_morpher(path: str) -> siren.SirenMorpher:
-    sd = load_torch_state_dict(path)
+def body_morpher_from_state_dict(sd: Dict[str, torch.Tensor]) -> siren.SirenMorpher:
     module = siren.SirenMorpher(body_config_from_state_dict(sd))
     module.load_state_dict(sd)
     return module
+
+
+def load_face_morpher(path: str) -> siren.SirenFaceMorpher:
+    return face_morpher_from_state_dict(load_torch_state_dict(path))
+
+
+def load_body_morpher(path: str) -> siren.SirenMorpher:
+    return body_morpher_from_state_dict(load_torch_state_dict(path))

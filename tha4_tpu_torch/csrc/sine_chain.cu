@@ -11,34 +11,44 @@
 //   * the f32 bias is added to the f32 accumulator before the omega multiply;
 //   * activations are stored in the compute dtype between layers;
 //   * the head has no sine and is cast to the output (= compute) dtype.
+// Only the order of the f32 sums differs between the designs below and the
+// TPU kernel.
 //
 // What bounds it on an H100: the four calls of one frame do 18.9 G
-// multiply-adds, while the weights (1.8 MB f32 for all levels) and the level
-// inputs/outputs are small, so the work is arithmetic: the card's f32 FMA
-// floor is about 0.56 ms a frame.  The layer-by-layer alternative writes
-// every (C, HW) intermediate to device memory (about 1 GB of traffic per
-// frame at 512^2 x 90); here a pixel tile's activations stay in shared
-// memory for the whole chain.  This first design issues one weight load per
-// FMA, and that load, not the FMA, is what it waits on: measured 4.6 ms a
-// frame in bf16 and 5.4 ms in f32 on an H100 SXM 80 GB at a 700 W power
-// limit, against 11.2 / 10.5 ms for the plain PyTorch version.
+// multiply-adds, 0.038 ms of bf16 tensor-core time at 989 TFLOP/s, and 132 M
+// fast_sin of about 20 CUDA-core operations each with their bias and omega,
+// 0.079 ms at the CUDA cores' 33.5 T operations a second; the weights (1.8
+// MB f32) and the level inputs and outputs are small.  In bf16 the sine
+// epilogue, not the products, is the bound.  The layer-by-layer alternative
+// writes every (C, HW) intermediate to device memory (about 1 GB a frame at
+// 512^2 x 90); here a pixel tile's activations stay on chip for the whole
+// chain.
 //
-// Design (simple and right first):
-//   * one CTA per (32-pixel tile, batch element); lane = pixel, so shared
-//     memory reads of an activation row are conflict-free;
-//   * two (Cmax x 32) activation buffers in shared memory, ping-ponged
-//     between layers (46 KB each at C = 360 in f32; set above 48 KB through
-//     cudaFuncAttributeMaxDynamicSharedMemorySize);
-//   * each thread owns 8 output channels of its pixel in f32 registers; the
-//     8 warps sweep the output channels;
-//   * weights are read from global memory through the read-only cache with a
-//     warp-uniform address (one broadcast per load); every level's weights
-//     stay resident in the 50 MB L2.
-// CUDA-core FMAs, not tensor cores: streaming weight K-blocks through shared
-// memory into mma/wgmma is the later optimisation (the bf16 face and L0
-// weight sets, 241 KB and 423 KB, do not fit one block's 227 KB).
+// bf16, on wgmma (sine_chain_tc_kernel; csrc/sine_chain_tc.cuh): two
+// warpgroups a block, one tile of 64 pixels; every layer a GEMM from the
+// tile's activation buffer in shared memory (A) and weight tiles streamed
+// through a four-stage ring of bulk copies (B), N in chunks of up to 128,
+// each warpgroup half of a chunk.  The epilogue of a half (layer 0's folded
+// pose and position terms or the bias, omega, fast_sin, bf16) writes the
+// next layer's A; the last layer's output is staged in shared memory and
+// stored one 64-pixel channel row at a time.  Layer 0's folded vector comes
+// from fold_kernel, one launch before, once per call.  A block does not
+// overlap its epilogues with its products; it sits on the epilogue, whose
+// loads are all unconditional (a clamped index, then a select) so that none
+// waits behind a branch, with the two or three blocks an SM holds (one at
+// level 0's 368-channel buffers) hiding each other's latency and the weight
+// stream's round trips to the L2 cache (each 64-pixel tile reads the
+// level's weights once).
+//
+// f32, on the CUDA cores (sine_chain_kernel; no TF32 on an f32 path): one
+// CTA per (32-pixel tile, batch element), lane = pixel; two (Cmax x 32)
+// activation buffers in shared memory, ping-ponged between layers; each
+// thread owns 8 output channels of its pixel in f32 registers; weights read
+// through the read-only cache with a warp-uniform address, every level's
+// weights resident in the 50 MB L2.  That load, not the FMA, is what it waits
+// on: 5.4 ms a frame on an H100 SXM 80 GB at a 700 W power limit.
 
-#include "common.cuh"
+#include "sine_chain_tc.cuh"
 
 namespace {
 
@@ -156,14 +166,154 @@ cudaError_t launch(const void* prev, int cp, const void* pos, const void* pose, 
 
 }  // namespace
 
-// specs: host int32 array of num_layers rows (ci, co, w_off, b_off); w_off
-// and b_off are element offsets into the packed weight and bias buffers.
-// Returns a cudaError_t (0 on success).
+// ---------------------------------------------------------------------------
+// bf16: wgmma
+// ---------------------------------------------------------------------------
+
+namespace tha4 {
+namespace tc {
+
+// Layer 0's folded vector (launch_fold, csrc/sine_chain_tc.cuh): a warp
+// per output channel of a block's eight, batch element blockIdx.y.
+__global__ void __launch_bounds__(256)
+fold_kernel(const __nv_bfloat16* __restrict__ w, const float* __restrict__ b, const float* __restrict__ pose,
+            const __grid_constant__ Chain ch, float* __restrict__ pre0) {
+  const int o = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.y;
+  if (o >= ch.co[0]) return;
+  const __nv_bfloat16* row = w + ch.w_off[0] + static_cast<size_t>(o) * ch.ci[0] + ch.cp + 2;
+  float s = 0.0f;
+  for (int q = lane; q < ch.pose_dim; q += 32) {
+    const float pq = __bfloat162float(__float2bfloat16_rn(__ldg(pose + static_cast<size_t>(n) * ch.pose_dim + q)));
+    s = __fmaf_rn(ldg_f32(row + q), pq, s);
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, m));
+  if (lane == 0) pre0[static_cast<size_t>(n) * ch.co[0] + o] = __fadd_rn(s, __ldg(b + ch.b_off[0] + o));
+}
+
+cudaError_t launch_fold(const Chain& c, const __nv_bfloat16* w, const float* b, const float* pose, int n, float* pre0,
+                        cudaStream_t stream) {
+  fold_kernel<<<dim3(cdiv(c.co[0], 8), n), 256, 0, stream>>>(w, b, pose, c, pre0);
+  return cudaGetLastError();
+}
+
+// The epilogue of this warpgroup's half of an N chunk of layer l, channels
+// from c0: bias (or layer 0's folded terms), omega, fast_sin for a sine
+// layer, bf16, into the next buffer.
+template <int H>
+__device__ __forceinline__ void k1_epilogue(const Epi epi, const float (&acc)[H / 2], unsigned char* dst, int c0) {
+#pragma unroll
+  for (int k = 0; k < H / 2; k += 2) {
+    const int o = c0 + frag_col(k);
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = epi.pre(acc[k + e], o + e, k);
+      const float y = epi.sine ? fast_sin(__fmul_rn(epi.omega, a)) : a;
+      v[e] = o + e < epi.co ? y : 0.0f;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dst + act_off(o, frag_row(k))) = __floats2bfloat162_rn(v[0], v[1]);
+  }
+}
+
+// One block: the tile of 64 pixels at blockIdx.x of batch element blockIdx.y.
+__global__ void __launch_bounds__(kThreads, 2)
+sine_chain_tc_kernel(const __nv_bfloat16* __restrict__ prev, const __nv_bfloat16* __restrict__ pos,
+                     const __nv_bfloat16* __restrict__ w, const float* __restrict__ b,
+                     const float* __restrict__ pre0, const __nv_bfloat16* __restrict__ layout,
+                     const __grid_constant__ Chain ch, float omega, __nv_bfloat16* __restrict__ out, int hw) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem sm = carve(smem, ch);
+  const int n = blockIdx.y;
+  const int px0 = blockIdx.x * kTile;
+  Ring ring = start_ring(sm, ch, layout, false);
+
+  load_prev(sm.buf[0], prev, ch.cp, n, px0, hw);
+  load_fold(sm, ch, w, pre0, n);
+  fence_proxy_async();
+  __syncthreads();
+
+  int tile = 0;
+  int in = 0;
+  for (int l = 0; l < ch.num_layers; ++l) {
+    const Segment seg = fwd_segment(ch, l);
+    const Epi epi = make_epi(sm, ch, b, pos, px0, hw, l, omega);
+    for (int n0 = 0; n0 < seg.n_layout; n0 += kNChunk) {
+      dispatch_half(min(kNChunk, seg.n_layout - n0), [&](auto width) {
+        constexpr int H = decltype(width)::value;
+        float acc[H / 2];
+        gemm_chunk<H>(acc, sm.buf[in], seg.k_used, ring, tile);
+        k1_epilogue<H>(epi, acc, sm.buf[in ^ 1], n0 + wg_index() * H);
+      });
+    }
+    fence_proxy_async();
+    __syncthreads();
+    in ^= 1;
+  }
+  store_channels_first(sm.buf[in], out, ch.co[ch.num_layers - 1], n, px0, hw);
+}
+
+}  // namespace tc
+}  // namespace tha4
+
+// The bf16 kernels' plan for a chain (rows as for tha4_sine_chain_forward):
+// plan[0] K1's shared memory a block, plan[1] K4's, plan[2] the elements of
+// K1's weight layout, plan[3] of K4's, plan[4] the bytes of K4's workspace at
+// n x hw with ``sms`` multiprocessors.  Returns a cudaError_t.
+extern "C" int tha4_sine_chain_tc_plan(const void* specs, int num_layers, int num_sine, int cp, int pose_dim,
+                                       int n, int hw, int sms, long long* plan) {
+  tha4::tc::Chain fwd, bwd;
+  int e = tha4::tc::make_chain(static_cast<const int*>(specs), num_layers, num_sine, cp, pose_dim, false, fwd);
+  if (e == 0) e = tha4::tc::make_chain(static_cast<const int*>(specs), num_layers, num_sine, cp, pose_dim, true, bwd);
+  if (e != 0) return e;
+  if (n < 1 || hw < 1 || sms < 1) return cudaErrorInvalidValue;
+  plan[0] = static_cast<long long>(tha4::tc::smem_bytes(fwd, 0));
+  plan[1] = static_cast<long long>(tha4::tc::bwd_smem_bytes(bwd));
+  plan[2] = fwd.fwd_elems;
+  plan[3] = fwd.layout_elems;
+  plan[4] = static_cast<long long>(tha4::tc::bwd_work(bwd, n, hw, sms).total);
+  return 0;
+}
+
+// K1, bf16: ``layout`` is the weight layout of tile_index (K1's forward
+// tiles at least); ``fold`` n x co_0 floats of scratch for layer 0's folded
+// vector; the rest as for tha4_sine_chain_forward.  Two launches.
+extern "C" int tha4_sine_chain_tc_forward(const void* prev, int cp, const void* pos, const void* pose, int pose_dim,
+                                          const void* w, const void* b, const void* layout, const void* specs,
+                                          int num_layers, int num_sine, float omega, void* out, void* fold, int n,
+                                          int hw, void* stream) {
+  tha4::tc::Chain ch;
+  int e = tha4::tc::make_chain(static_cast<const int*>(specs), num_layers, num_sine, cp, pose_dim, false, ch);
+  if (e != 0) return e;
+  if (n < 1 || n > 65535 || hw < 1 || (cp > 0 && prev == nullptr) || fold == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = tha4::tc::smem_bytes(ch, 0);
+  if (smem > tha4::tc::kSmemLimit) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pre0 = static_cast<float*>(fold);
+  e = tha4::tc::launch_fold(ch, static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b),
+                            static_cast<const float*>(pose), n, pre0, s);
+  if (e != cudaSuccess) return e;
+  // Set on every launch: the attribute is per device, and the call is cheap.
+  e = cudaFuncSetAttribute(tha4::tc::sine_chain_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(tha4::tc::cdiv(hw, tha4::tc::kTile), n);
+  tha4::tc::sine_chain_tc_kernel<<<grid, tha4::tc::kThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(prev), static_cast<const __nv_bfloat16*>(pos), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(b), pre0, static_cast<const __nv_bfloat16*>(layout), ch, omega,
+      static_cast<__nv_bfloat16*>(out), hw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1, f32.  specs: host int32 array of num_layers rows (ci, co, w_off,
+// b_off); w_off and b_off are element offsets into the packed weight and bias
+// buffers.  Returns a cudaError_t (0 on success).
 extern "C" int tha4_sine_chain_forward(const void* prev, int has_prev, int cp, const void* pos,
                                        const void* pose, int pose_dim, const void* w,
                                        const void* b, const void* specs, int num_layers,
                                        int num_sine, float omega, void* out, int n, int hw,
-                                       int is_bf16, void* stream) {
+                                       void* stream) {
   if (num_layers < 1 || num_layers > kMaxLayers || num_sine > num_layers || n < 1 || hw < 1)
     return cudaErrorInvalidValue;
   if (!has_prev) cp = 0;
@@ -182,11 +332,7 @@ extern "C" int tha4_sine_chain_forward(const void* prev, int has_prev, int cp, c
   }
   if (spec.ci[0] != cp + 2 + pose_dim) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = is_bf16 ? launch<__nv_bfloat16>(prev, cp, pos, pose, pose_dim, w, b, spec,
-                                                  omega, out, n, hw, s)
-                          : launch<float>(prev, cp, pos, pose, pose_dim, w, b, spec, omega,
-                                          out, n, hw, s);
-  return static_cast<int>(e);
+  return static_cast<int>(launch<float>(prev, cp, pos, pose, pose_dim, w, b, spec, omega, out, n, hw, s));
 }
 
 extern "C" const char* tha4_cuda_error_string(int e) {

@@ -34,13 +34,23 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # prev, has_prev, cp, pos, pose, pose_dim, w, b, specs, num_layers,
-    # num_sine, omega, out, n, hw, is_bf16, stream
+    # num_sine, omega, out, n, hw, stream
     "tha4_sine_chain_forward": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
-                                ctypes.c_float, _P, _I, _I, _I, _P],
+                                ctypes.c_float, _P, _I, _I, _P],
     # prev, has_prev, cp, pos, pose, pose_dim, w, b, specs, num_layers,
-    # num_sine, omega, gout, dprev, scratch, blocks, grads, n, hw, is_bf16, stream
+    # num_sine, omega, gout, dprev, scratch, blocks, grads, n, hw, stream
     "tha4_sine_chain_backward": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
-                                 ctypes.c_float, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+                                 ctypes.c_float, _P, _P, _P, _I, _P, _I, _I, _P],
+    # specs, num_layers, num_sine, cp, pose_dim, n, hw, sms, plan[5] out
+    "tha4_sine_chain_tc_plan": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # prev, cp, pos, pose, pose_dim, w, b, tiles, specs, num_layers,
+    # num_sine, omega, out, fold scratch, n, hw, stream
+    "tha4_sine_chain_tc_forward": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _I, _I, _P],
+    # prev, cp, pos, pose, pose_dim, w, b, tiles, specs, num_layers,
+    # num_sine, omega, gout, dprev, workspace, workspace bytes, grads, n,
+    # hw, sms, stream
+    "tha4_sine_chain_tc_backward": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _L, _P,
+                                    _I, _I, _I, _P],
     # image, grid, out, n, h, w, ho, wo, is_bf16, stream
     "tha4_grid_sample_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # image, grid, out, dx, dy, n, h, w, ho, wo, is_bf16, stream

@@ -22,10 +22,20 @@ Precision rule (``tha4_tpu/ops/pallas_util.py:kernel_dot_precision``):
 Weights are packed once per poser and dtype (``pack_chain``): each layer's
 (Co, Ci) matrix, which is the squeezed 1x1-conv weight as stored, flattened
 into one buffer in the compute dtype, and the biases into one f32 buffer.
+In bf16 the chain also carries the tensor-core kernels' tile layout of the
+same weights (``tile_index``; csrc/sine_chain_tc.cuh), made by one gather.
+
+Two designs per kernel: bf16 runs on the tensor cores (``wgmma``, the
+``tha4_sine_chain_tc_*`` entry points), f32 on the CUDA cores (no TF32).
+The bf16 kernels fold layer 0's pose columns and bias into one f32 vector
+per batch element and its position columns into two FMAs: the same exact
+products as the plain versions, summed in another order.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -75,12 +85,15 @@ class PackedChain:
     compute dtype.  ``b``: the biases concatenated, f32.  ``specs``: one
     (ci, co, w_offset, b_offset) row per layer, int32, on the host.  The
     first ``num_sine`` layers have a sine; a remaining last layer is the head.
+    ``tiles``: bf16 only, ``w`` in the tensor-core kernels' tile layout
+    (``tile_layout``); None in f32.
     """
 
     w: torch.Tensor
     b: torch.Tensor
     specs: np.ndarray
     num_sine: int
+    tiles: Optional[torch.Tensor] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -108,9 +121,63 @@ def pack_chain(
     """Pack sine layers (and an optional head) given as (W (Co, Ci), b (Co))."""
     mats = list(layers) + ([head] if head is not None else [])
     specs = chain_specs([tuple(w.shape) for w, _ in mats])
-    w = torch.cat([w.detach().reshape(-1) for w, _ in mats]).to(device=device, dtype=dtype)
+    w = torch.cat([w.detach().reshape(-1) for w, _ in mats]).to(device=device, dtype=dtype).contiguous()
     b = torch.cat([b.detach().reshape(-1) for _, b in mats]).to(device=device, dtype=torch.float32)
-    return PackedChain(w.contiguous(), b.contiguous(), specs, len(layers))
+    return PackedChain(w, b.contiguous(), specs, len(layers), tile_layout(w, specs))
+
+
+_TILE_N = 128  # csrc/sine_chain_tc.cuh kNChunk: output rows of a weight tile
+_TILE_K = 64  # kKBlock: input columns of a weight tile
+
+
+def _pad16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_index(spec_rows: Tuple[Tuple[int, ...], ...]) -> np.ndarray:
+    last_ci, last_co, last_w, _ = spec_rows[-1]
+    zero = last_w + last_co * last_ci  # the index of the appended 0
+    mats = []
+    for ci, co, wo, _ in spec_rows:
+        m = np.full((_pad16(co), _pad16(ci)), zero, dtype=np.int64)
+        m[:co, :ci] = wo + np.arange(co)[:, None] * ci + np.arange(ci)[None, :]
+        mats.append(m)
+    parts = []
+    for m in mats + [m.T for m in reversed(mats)]:
+        rows, cols = m.shape
+        for n0 in range(0, rows, _TILE_N):
+            nb = min(_TILE_N, rows - n0)
+            for k0 in range(0, cols, _TILE_K):
+                kb = min(_TILE_K, cols - k0)
+                parts.append(m[n0 : n0 + nb, k0 : k0 + kb].reshape(nb, kb // 8, 8).transpose(1, 0, 2).ravel())
+    return np.concatenate(parts)
+
+
+def tile_index(specs: np.ndarray) -> np.ndarray:
+    """The tensor-core kernels' weight layout as indices into the packed
+    weights with one 0 appended (index ``w.numel()``).
+
+    Per layer, the (Co, Ci) matrix padded to multiples of 16 and cut into
+    tiles of up to 128 rows x 64 columns, row chunks outer, column blocks
+    inner; each tile stored [column group of 8][rows][8], the shared-memory
+    image of ``wgmma``'s K-major B operand.  First every layer's W (the
+    forward, K1), then every layer's W^T from the last (the backward, K4)."""
+    return _tile_index(tuple(tuple(int(v) for v in row) for row in specs))
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_index_tensor(spec_rows, device) -> torch.Tensor:
+    return torch.from_numpy(_tile_index(spec_rows)).to(device)
+
+
+def tile_layout(w: torch.Tensor, specs: np.ndarray) -> Optional[torch.Tensor]:
+    """``w`` (packed bf16) in the tensor-core kernels' tile layout: one
+    gather; None for f32, whose kernels read the packed matrices."""
+    if w.dtype != torch.bfloat16:
+        return None
+    index = _tile_index_tensor(tuple(tuple(int(v) for v in row) for row in specs), w.device)
+    return torch.cat([w, w.new_zeros(1)])[index]
 
 
 def chain_specs(shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
@@ -174,23 +241,66 @@ def sine_chain_t(
     if pos_t.device.type != "cuda":
         raise ValueError(f"sine_chain_t: unsupported device {pos_t.device}")
     _check(prev, pos_t, pose, chain)
-    n, hw = pose.shape[0], pos_t.shape[1]
+    n, hw, cp = pose.shape[0], pos_t.shape[1], 0 if prev is None else prev.shape[1]
     out = torch.empty((n, chain.out_channels, hw), dtype=chain.dtype, device=pos_t.device)
     stream = cuda_build.current_stream(pos_t.device)
-    status = cuda_build.library().tha4_sine_chain_forward(
-        None if prev is None else prev.data_ptr(), int(prev is not None),
-        0 if prev is None else prev.shape[1],
-        pos_t.data_ptr(), pose.data_ptr(), pose.shape[1],
-        chain.w.data_ptr(), chain.b.data_ptr(), chain.specs.ctypes.data,
-        chain.num_layers, chain.num_sine, float(omega), out.data_ptr(), n, hw,
-        int(chain.dtype == torch.bfloat16), stream,
-    )
+    lib = cuda_build.library()
+    prev_ptr = None if prev is None else prev.data_ptr()
+    if chain.dtype == torch.bfloat16:
+        _tc_plan(chain, cp, pose.shape[1], n, hw, pos_t.device, backward=False)
+        fold = torch.empty((n, int(chain.specs[0, 1])), dtype=torch.float32, device=pos_t.device)
+        status = lib.tha4_sine_chain_tc_forward(
+            prev_ptr, cp, pos_t.data_ptr(), pose.data_ptr(), pose.shape[1], chain.w.data_ptr(), chain.b.data_ptr(),
+            chain.tiles.data_ptr(), chain.specs.ctypes.data, chain.num_layers, chain.num_sine, float(omega),
+            out.data_ptr(), fold.data_ptr(), n, hw, stream,
+        )
+    else:
+        status = lib.tha4_sine_chain_forward(
+            prev_ptr, int(prev is not None), cp, pos_t.data_ptr(), pose.data_ptr(), pose.shape[1],
+            chain.w.data_ptr(), chain.b.data_ptr(), chain.specs.ctypes.data,
+            chain.num_layers, chain.num_sine, float(omega), out.data_ptr(), n, hw, stream,
+        )
     cuda_build.check(status, "sine_chain_t")
     sine_chain_t.launches += 1
     return out
 
 
 sine_chain_t.launches = 0
+
+
+_SMEM_LIMIT = 232448  # 227 KB, the most one block may use on Hopper
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(spec_bytes: bytes, num_sine: int, cp: int, pose_dim: int, n: int, hw: int, sms: int) -> Tuple[int, ...]:
+    plan = (ctypes.c_longlong * 5)()
+    specs = np.frombuffer(spec_bytes, dtype=np.int32)
+    status = cuda_build.library().tha4_sine_chain_tc_plan(
+        specs.ctypes.data, len(specs) // 4, num_sine, cp, pose_dim, n, hw, sms, plan)
+    cuda_build.check(status, "sine_chain_tc_plan")
+    return tuple(plan)
+
+
+def _tc_plan(chain: PackedChain, cp: int, pose_dim: int, n: int, hw: int, device, backward: bool) -> Tuple[int, ...]:
+    """The bf16 kernels' plan (csrc/sine_chain.cu tha4_sine_chain_tc_plan):
+    (K1 shared memory, K4 shared memory, K1 and K4 layout elements, K4
+    workspace bytes).  Raises where a block would need more shared memory
+    than Hopper has, or where ``chain.tiles`` is not the layout the kernels
+    read."""
+    plan = _plan(chain.specs.tobytes(), chain.num_sine, cp, pose_dim, n, hw, _sm_count(device.index))
+    smem = plan[1] if backward else plan[0]
+    name = "sine_chain_t_bwd" if backward else "sine_chain_t"
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: this chain needs {smem} bytes of shared memory per block, "
+                         f"over the {_SMEM_LIMIT} a Hopper block may use")
+    if chain.tiles is None or chain.tiles.numel() != plan[3] or chain.tiles.device != device:
+        raise ValueError(f"{name}: chain.tiles is not this chain's tile layout on {device} (tile_layout)")
+    return plan
 
 
 def _check(prev, pos_t, pose, chain: PackedChain) -> None:
@@ -230,8 +340,7 @@ def _check(prev, pos_t, pose, chain: PackedChain) -> None:
 # K4: the backward (counterpart of pallas_siren.fused_sine_chain_t_bwd)
 # ---------------------------------------------------------------------------
 
-_BWD_TILE = 32  # csrc/sine_chain_bwd.cu kTile
-_BWD_SMEM_LIMIT = 232448  # 227 KB, the most one block may use on Hopper
+_BWD_TILE = 32  # csrc/sine_chain_bwd.cu kTile (the f32 kernel)
 
 
 def chain_t_bwd_plain(
@@ -277,7 +386,7 @@ def chain_t_bwd_plain(
 
 
 def bwd_smem_bytes(chain: PackedChain, cin: int) -> int:
-    """Shared memory one K4 block needs: every sine layer's f32
+    """Shared memory one block of the f32 K4 needs: every sine layer's f32
     pre-activations plus three C_max-row buffers, 33 words a row."""
     stash = int(chain.specs[: chain.num_sine, 1].sum())
     cmax = max([cin] + [int(c) for c in chain.specs[:, 1]])
@@ -310,27 +419,37 @@ def sine_chain_t_bwd(
     if chain.num_sine < chain.num_layers - 1:
         raise ValueError("K4 takes sine layers and at most one head")
     cp = 0 if prev is None else prev.shape[1]
-    smem = bwd_smem_bytes(chain, cp + 2 + pose_dim)
-    if smem > _BWD_SMEM_LIMIT:
-        raise ValueError(f"sine_chain_t_bwd: this chain needs {smem} bytes of shared memory per block, "
-                         f"over the {_BWD_SMEM_LIMIT} a Hopper block may use")
+    device = pos_t.device
     w_total, b_total = chain.w.numel(), chain.b.numel()
-    slab = w_total + b_total + n * pose_dim
-    # One persistent block per SM; the grid size fixes the order of every sum.
-    items = n * -(-hw // _BWD_TILE)
-    blocks = min(items, torch.cuda.get_device_properties(pos_t.device).multi_processor_count)
-    scratch = torch.empty((blocks, slab), dtype=torch.float32, device=pos_t.device)
-    grads = torch.empty(slab, dtype=torch.float32, device=pos_t.device)
+    grads = torch.empty(w_total + b_total + n * pose_dim, dtype=torch.float32, device=device)
     dprev = None if prev is None else torch.empty_like(prev)
-    stream = cuda_build.current_stream(pos_t.device)
-    status = cuda_build.library().tha4_sine_chain_backward(
-        None if prev is None else prev.data_ptr(), int(prev is not None), cp,
-        pos_t.data_ptr(), pose.data_ptr(), pose_dim,
-        chain.w.data_ptr(), chain.b.data_ptr(), chain.specs.ctypes.data,
-        chain.num_layers, chain.num_sine, float(omega), g.data_ptr(),
-        None if dprev is None else dprev.data_ptr(), scratch.data_ptr(), blocks, grads.data_ptr(),
-        n, hw, int(chain.dtype == torch.bfloat16), stream,
-    )
+    stream = cuda_build.current_stream(device)
+    lib = cuda_build.library()
+    prev_ptr = None if prev is None else prev.data_ptr()
+    dprev_ptr = None if dprev is None else dprev.data_ptr()
+    sms = _sm_count(device.index)
+    if chain.dtype == torch.bfloat16:
+        plan = _tc_plan(chain, cp, pose_dim, n, hw, device, backward=True)
+        workspace = torch.empty(plan[4], dtype=torch.uint8, device=device)
+        status = lib.tha4_sine_chain_tc_backward(
+            prev_ptr, cp, pos_t.data_ptr(), pose.data_ptr(), pose_dim, chain.w.data_ptr(), chain.b.data_ptr(),
+            chain.tiles.data_ptr(), chain.specs.ctypes.data, chain.num_layers, chain.num_sine, float(omega),
+            g.data_ptr(), dprev_ptr, workspace.data_ptr(), workspace.numel(), grads.data_ptr(), n, hw, sms, stream,
+        )
+    else:
+        smem = bwd_smem_bytes(chain, cp + 2 + pose_dim)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"sine_chain_t_bwd: this chain needs {smem} bytes of shared memory per block, "
+                             f"over the {_SMEM_LIMIT} a Hopper block may use")
+        # One persistent block per SM; the grid size fixes the order of every sum.
+        blocks = min(n * -(-hw // _BWD_TILE), sms)
+        scratch = torch.empty((blocks, grads.numel()), dtype=torch.float32, device=device)
+        status = lib.tha4_sine_chain_backward(
+            prev_ptr, int(prev is not None), cp, pos_t.data_ptr(), pose.data_ptr(), pose_dim,
+            chain.w.data_ptr(), chain.b.data_ptr(), chain.specs.ctypes.data,
+            chain.num_layers, chain.num_sine, float(omega), g.data_ptr(),
+            dprev_ptr, scratch.data_ptr(), blocks, grads.data_ptr(), n, hw, stream,
+        )
     cuda_build.check(status, "sine_chain_t_bwd")
     sine_chain_t_bwd.launches += 1
     dpose = grads[w_total + b_total :].view(n, pose_dim)
@@ -344,13 +463,15 @@ class SineChainFunction(torch.autograd.Function):
     """One SIREN level with K1 as its forward and K4 as its backward.
 
     It takes the f32 master weights (``w32``, ``b32`` in the packed layout of
-    ``specs``) and casts them to the compute dtype inside, so the weight
+    ``specs``) and casts them to the compute dtype inside (in bf16 also to
+    the tile layout, one gather a step), so the weight
     gradients come back f32 whatever the compute dtype, as JAX's do
     (``pallas_siren.py:500-501``).  No gradient flows to ``pos_t``."""
 
     @staticmethod
     def forward(ctx, w32, b32, prev, pos_t, pose, specs, num_sine, omega, dtype):
-        chain = PackedChain(w32.to(dtype).contiguous(), b32.contiguous(), specs, num_sine)
+        w = w32.to(dtype).contiguous()
+        chain = PackedChain(w, b32.contiguous(), specs, num_sine, tile_layout(w, specs))
         ctx.chain, ctx.omega = chain, omega
         ctx.save_for_backward(prev, pos_t, pose)
         return sine_chain_t(prev, pos_t, pose, chain, omega)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from tha4_tpu_torch.convert import torch_weights
@@ -126,7 +127,8 @@ def create_poser(
     compute_dtype: torch.dtype = torch.float32,
     device="cuda",
 ) -> StudentPoser:
-    """Build the student poser from reference-format ``.pt`` checkpoints."""
+    """Build the student poser from reference-format ``.pt`` files or the
+    port's own ``.npz`` training checkpoints."""
     module_file_names = dict(module_file_names or {})
     module_file_names.setdefault(KEY_FACE_MORPHER, "data/character_models/lambda_00/face_morpher.pt")
     module_file_names.setdefault(KEY_BODY_MORPHER, "data/character_models/lambda_00/body_morpher.pt")
@@ -139,10 +141,29 @@ def create_poser(
     )
 
 
+# The JAX package's checkpoints join a pytree path's keys with this
+# separator (tha4_tpu/training/checkpoint.py SEP); the port's state-dict
+# keys are dotted.
+_JAX_TREE_SEP = "\x1f"
+
+
 def _load_student(path: str, kind: str):
-    if path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: .npz training checkpoints load once the training checkpoint format is ported; "
-            "export the student to a .pt state dict (tha4_tpu.convert.export_torch) meanwhile"
+    """A student from a reference-format ``.pt`` state dict, or from the
+    port's own training checkpoint, ``module_<name>.npz``: the same state
+    dict, one array per key (``training/checkpoint.py``)."""
+    if not path.endswith(".npz"):
+        return torch_weights.load_face_morpher(path) if kind == "face" else torch_weights.load_body_morpher(path)
+    with np.load(path) as data:
+        sd = {k: torch.from_numpy(data[k]) for k in data.files}
+    if any(_JAX_TREE_SEP in k for k in sd):
+        raise ValueError(
+            f"{path}: a JAX package checkpoint (a params pytree flattened by path), not the port's; the two "
+            "packages do not load each other's .npz checkpoints: export the JAX student to a .pt state dict "
+            "(tha4_tpu.convert.export_torch) and load that"
         )
-    return torch_weights.load_face_morpher(path) if kind == "face" else torch_weights.load_body_morpher(path)
+    try:
+        if kind == "face":
+            return torch_weights.face_morpher_from_state_dict(sd)
+        return torch_weights.body_morpher_from_state_dict(sd)
+    except (KeyError, RuntimeError) as e:
+        raise ValueError(f"{path}: not a port {kind} student checkpoint ({e})") from e

@@ -1,6 +1,6 @@
 """Profile or time one distillation step on one GPU.
 
-    python -m tha4_tpu_torch.tools.profile_step [--student body|face] [--dtype bf16|f32]
+    python -m tha4_tpu_torch.tools.profile_step [--student body|face|frame] [--dtype bf16|f32]
                                                 [--steps 5]
     python tha4_tpu_torch/tools/profile_step.py --time [--root DIR] [--label NAME]
 
@@ -10,14 +10,24 @@ for the face student), the shipped student and the synthetic character.
 
 Profiling (the default) runs two warm-up steps of the recipe at batch 8
 (``recipes.make_body_distill_step`` with the selective-f32 student in bf16,
-or ``make_face_distill_step``), then ``--steps`` steps under
+or ``make_face_distill_step``; ``--student frame``: the student frame at
+B = 1, as ``frame_ms`` below runs it), then ``--steps`` steps under
 ``torch.profiler`` with the poses already on the card.  It prints one line
 per kernel group and the busiest kernels, each as device ms per step and
 launches per step, then a JSON summary: device busy ms per step (the sum of
 kernel times: one stream, so kernels do not overlap), wall ms per step under
 the profiler, and their ratio, the busy share.
 
-``--time`` prints one JSON line for the body path instead:
+``--time`` prints one JSON line for the student frame, the face step and
+the body path instead:
+
+* ``frame_ms``: one bf16 frame at B = 1 of a seeded random full-width
+  character model (``charmodel.synthetic``) through
+  ``CharacterModel.get_poser(...).get_posing_outputs`` with the image on the
+  card, host clock to ``torch.cuda.synchronize()``, the median of 30 after 3
+  warm-up frames;
+* ``face_step_ms``: one bf16 face step at B = 8, host clock to
+  ``torch.cuda.synchronize()``, the median of 10 after 3 warm-up steps;
 
 * ``teacher_ms``: one ``mode_07.compute_outputs`` call at B = 1 and 8, bf16
   and f32, the median of 20 CUDA-event timings after 2 warm-up calls;
@@ -62,8 +72,9 @@ TOP = 15  # the busiest kernels listed
 TEACHER_ITERS = 20  # --time: CUDA-event timings a teacher median (B = 1 calls spread by +-20 %)
 # Kernel name fragments -> group, first match wins.
 GROUPS = (
-    ("K1 sine_chain", ("sine_chain_kernel",)),
-    ("K4 sine_chain_bwd", ("sine_chain_bwd_kernel", "sum_slabs_kernel")),
+    ("K1 sine_chain", ("sine_chain_kernel", "sine_chain_tc_kernel")),
+    ("K4 sine_chain_bwd", ("sine_chain_bwd_kernel", "sum_slabs_kernel", "sine_chain_bwd_tc_kernel", "sine_chain_dw_kernel",
+                           "column_sum_kernel", "dpose_kernel")),
     ("K2 warp", ("grid_sample_kernel",)),
     ("K3 warp corners", ("grid_sample_corners_kernel",)),
     ("K5 poly_sin", ("poly_sin_",)),
@@ -182,8 +193,50 @@ def device_ops(fn) -> int:
     return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
+def _host_ms(fn, iters: int, warmup: int) -> float:
+    """Median host-clock ms of ``fn()`` to ``torch.cuda.synchronize()``."""
+    times = []
+    for i in range(warmup + iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1000.0)
+    return statistics.median(times)
+
+
+def _frame(dtype: torch.dtype, workdir: str):
+    """frame(): one student frame at B = 1 of a seeded random full-width
+    character model, the image on the card, the next of four poses."""
+    from tha4_tpu_torch.charmodel import CharacterModel
+    from tha4_tpu_torch.charmodel.synthetic import write_random_character_model
+
+    model = CharacterModel.load(write_random_character_model(os.path.join(workdir, "model"), seed=SEED))
+    poser = model.get_poser(dtype, "cuda")
+    image = torch.from_numpy(model.get_character_image()).cuda()
+    poses = torch.rand((4, 45), generator=torch.Generator().manual_seed(SEED)).cuda()
+    count = [0]
+
+    def frame():
+        poser.get_posing_outputs(image, poses[count[0] % 4])
+        count[0] += 1
+
+    return frame
+
+
+def _time_student() -> dict:
+    """``frame_ms`` and ``face_step_ms`` of the ``--time`` line."""
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
+        frame_ms = _host_ms(_frame(torch.bfloat16, workdir), 30, 3)
+        step = _setup("face", torch.bfloat16, workdir)[3]
+        face_step_ms = _host_ms(step, 10, 3)
+    return {"frame_ms": frame_ms, "face_step_ms": face_step_ms}
+
+
 def _time_body(label: str) -> dict:
-    """The ``--time`` line: the mode_07 teacher and the bf16 body step."""
+    """The ``--time`` line: the student frame and face step, the mode_07
+    teacher and the bf16 body step."""
     from tha4_tpu_torch.distiller import recipes
     from tha4_tpu_torch.poser.modes import mode_07
 
@@ -194,7 +247,7 @@ def _time_body(label: str) -> dict:
         k6 = cuda_conv.fused_affine_conv3_nchw
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    result = {"label": label, "card": card, "teacher_ms": {}, "teacher_launches": {}}
+    result = {"label": label, "card": card, **_time_student(), "teacher_ms": {}, "teacher_launches": {}}
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
             teacher, image, poses, step = _setup("body", dtype, workdir)
@@ -228,7 +281,7 @@ def _profile(student: str, dtype: torch.dtype, steps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
-        step = _setup(student, dtype, workdir)[3]
+        step = _frame(dtype, workdir) if student == "frame" else _setup(student, dtype, workdir)[3]
         for _ in range(2):
             step()
         torch.cuda.synchronize()
@@ -250,14 +303,15 @@ def _profile(student: str, dtype: torch.dtype, steps: int) -> dict:
         by_group[_group(name)][1] += n
     busy = sum(ms for ms, _ in by_name.values())
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
-    print(f"{student} step, {tag}, B={BATCH}, {steps} steps on {torch.cuda.get_device_name(0)}:")
+    batch = 1 if student == "frame" else BATCH
+    print(f"{student} step, {tag}, B={batch}, {steps} steps on {torch.cuda.get_device_name(0)}:")
     for group, (ms, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
         print(f"  {group:24s} {ms:9.3f} ms/step  {n / steps:7.1f} launches/step  {100.0 * ms / busy:5.1f} %")
     print(f"  busiest {TOP} kernels:")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
         print(f"    {ms:9.3f} ms/step  {n / steps:6.1f}/step  {name[:110]}")
     return {
-        "student": student, "dtype": tag, "batch": BATCH, "steps": steps,
+        "student": student, "dtype": tag, "batch": batch, "steps": steps,
         "device_busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms,
         "kernels_per_step": len(kernels) / steps,
         "groups_ms": {g: v[0] for g, v in by_group.items()}, "device": torch.cuda.get_device_name(0),
@@ -266,10 +320,10 @@ def _profile(student: str, dtype: torch.dtype, steps: int) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--student", choices=("body", "face"), default="body")
+    parser.add_argument("--student", choices=("body", "face", "frame"), default="body")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     parser.add_argument("--steps", type=int, default=5)
-    parser.add_argument("--time", action="store_true", help="time the body path instead of profiling a step")
+    parser.add_argument("--time", action="store_true", help="time the frame, face step and body path instead of profiling a step")
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                         help="the checkout whose tha4_tpu_torch runs (default: the one this file lies in)")
     parser.add_argument("--label", default=None)
