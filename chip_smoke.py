@@ -40,11 +40,15 @@ Phases, one or more lines each:
    student gradients on the card (K1 + K4) must match the plain backward
    on the CPU for the same loss cotangent; ms/step at batch 8 in bf16 and
    f32 is printed, split into teacher, student and Adam;
-8. K3 (``grid_sample_corners``, the differentiable warp's forward) against
-   its plain version at the body student's head warp, (8, 512^2, 4) f32
-   and bf16, smooth and far (> 150 px) grids: out / dx / dy and the grid
-   gradient through the autograd Function, two calls bit-identical, median
-   times beside ``F.grid_sample`` forward + grid backward;
+8. K3, the differentiable warp, at the body student's head warp, (8,
+   512^2, 4) f32 and bf16, smooth and far (> 150 px) grids: its forward
+   (``grid_sample_train_forward``, K2's kernel) equal to K2 bit for bit,
+   its grid backward (``grid_sample_grid_backward``) against its plain
+   version, two calls and the autograd path bit-identical; the card's own
+   times (CUDA graphs) of the forward, the backward and the pair beside
+   ``F.grid_sample`` and ``aten.grid_sampler_2d_backward`` (grid only), the
+   pair back to back directly and through autograd beside ``F.grid_sample``
+   forward + grid backward through autograd, and the pair's bound and share;
 9. K5 (``poly_sin`` forward and backward) at the body student's widest
    layer, (8, 512^2, 90), f32 -> bf16 (the mixed path), bf16 and f32;
 10. the body teacher: a seeded full-width random mode_07 (zero-init layers
@@ -62,8 +66,9 @@ Phases, one or more lines each:
     phases).train()`` with the default six phases scaled to 32 steps at
     batch 8, bf16 with the selective-f32 student, across two checkpoint
     boundaries.  Losses must be finite; each step must launch K2 five
-    times, K3 once, each poly_sin kernel 9 times, K6 102 times (the
-    teacher's U-Nets), K1 and K4 never; resuming
+    times, K3's forward and its grid backward once each, each poly_sin
+    kernel 9 times, K6 102 times (the teacher's U-Nets), K1 and K4 never;
+    resuming
     from checkpoint 1 must reproduce the run; the f32 student gradients on
     the card must match the plain backward on the CPU for the same labels
     and poses, split at the head output (the trunk on the card's head
@@ -91,9 +96,10 @@ Phases, one or more lines each:
     compared too: some of its f32 algorithms are not deterministic), ms per
     pose at B = 1 is printed; ``mode_12.create_poser`` gives its 22 outputs.
 
-The line before the last is a JSON object with one entry per kernel (K1-K6,
-the fold, and K7 and the TPU probe ``tools/warp_probe.py`` under their
-counterparts K6 and K2), each with its bound: the larger of the bytes it
+The line before the last is a JSON object with one entry per kernel (K1,
+K2, K3's forward and grid backward, K4-K6, the fold, and K7 and the TPU
+probe ``tools/warp_probe.py`` under their counterparts K6 and K2), each
+with its bound: the larger of the bytes it
 must move over 3.35 TB/s and its multiply-adds over the card's peak for
 their type (989 TFLOP/s bf16, 67 TFLOP/s f32; the H100 SXM data sheet); the
 last is
@@ -164,9 +170,9 @@ STEP_DRIFT_ATOL = 5e-5
 # the bar leaves room for a teacher conv whose sum order varied, which
 # would move a label by a bf16 step and an Adam step by a fraction of lr.
 RESUME_ATOL = 1e-6
-# K3: out in the same f32 order as its plain version, then the image dtype's
-# cast; dx / dy f32; dgrid (the shared elementwise backward over K3's and the
-# plain version's fields) over its largest, tests/test_pallas_warp.py:44-60.
+# K3: its forward is K2's kernel (K2's bars); dgrid, the grid backward
+# against its plain version (the corners regathered, the channel sums in
+# another order), over its largest, tests/test_pallas_warp.py:44-60.
 K3_DGRID_ATOL = 2e-5
 # K5: the same f32 operations, none contracted, then one rounding.
 K5_F32_ATOL = 1e-6
@@ -843,7 +849,9 @@ def phase_training(torch, workdir: str) -> dict:
 
 
 def phase_k3(torch) -> dict:
-    """K3 at the body student's head warp: (8, 512^2, 4), f32 and bf16."""
+    """K3 at the body student's head warp, (8, 512^2, 4), f32 and bf16: its
+    forward (K2's kernel, ``grid_sample_train_forward``) and its grid
+    backward (``grid_sample_grid_backward``)."""
     from tha4_tpu_torch.ops import cuda_warp, warp
 
     gen = torch.Generator().manual_seed(SEED + 10)
@@ -856,63 +864,104 @@ def phase_k3(torch) -> dict:
     grids = {"smooth<=30px": identity + smooth * (30.0 * px), "far>150px": identity + 200.0 * px + smooth * (50.0 * px)}
     image32 = (torch.rand((n, size, size, 4), generator=gen) * 2.0 - 1.0).cuda()
     g32 = torch.randn((n, size, size, 4), generator=gen).cuda()
-    results = {"f32_err": 0.0, "bf16_err": 0.0, "dgrid_err": 0.0, "ms": {}, "plain_ms": {}, "fwd_bwd_ms": {}, "library_ms": {}, "bound": {}}
+    keys = ("fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms", "library_bwd_ms", "pair_ms",
+            "pair_library_ms", "pair_b2b_ms", "pair_autograd_ms", "pair_library_autograd_ms", "bound_fwd", "bound_bwd")
+    results = {"f32_err": 0.0, "bf16_err": 0.0, "dgrid_err": 0.0, "dgrid_abs_err": 0.0, **{k: {} for k in keys}}
     for dtype, tag, out_bar in [(torch.float32, "f32", K2_F32_ATOL), (torch.bfloat16, "bf16", K2_BF16_ATOL)]:
         image, g = image32.to(dtype), g32.to(dtype)
         for gname, grid in grids.items():
             grid = grid.contiguous()
-            first = cuda_warp.grid_sample_corners(image, grid)
-            again = cuda_warp.grid_sample_corners(image, grid)
-            ref = cuda_warp.grid_sample_corners_plain(image, grid)
+            out = cuda_warp.grid_sample_train_forward(image, grid)
+            first = cuda_warp.grid_sample_grid_backward(g, image, grid)
+            again = cuda_warp.grid_sample_grid_backward(g, image, grid)
+            ref_out = cuda_warp.grid_sample_bilinear_border(image, grid)
+            ref = cuda_warp.grid_sample_grid_backward_plain(g, image, grid)
             torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                raise AssertionError(f"K3 {tag} {gname}: two calls differ")
-            errs = [float((a.float() - r.float()).abs().max()) for a, r in zip(first, ref)]
-            if first[0].dtype != dtype or not errs[0] <= out_bar or not max(errs[1:]) <= K2_F32_ATOL:
-                raise AssertionError(f"K3 {tag} {gname}: out/dx/dy errors {errs} (bars {out_bar}, {K2_F32_ATOL})")
-            # The grid gradient through the autograd Function (K3 on the card)
-            # against the same backward over the plain version's fields.
+            if out.dtype != dtype or not torch.equal(out, cuda_warp.grid_sample_fast(image, grid)):
+                raise AssertionError(f"K3 {tag} {gname}: the differentiable forward is not K2's output ({out.dtype})")
+            if first.dtype != torch.float32 or first.shape != (n, size, size, 2) or not torch.equal(first, again):
+                raise AssertionError(f"K3 {tag} {gname}: two grid-backward calls differ, or dgrid is {first.dtype} {tuple(first.shape)}")
+            out_err = float((out.float() - ref_out.float()).abs().max())
+            dgrid_abs = float((first - ref).abs().max())
+            dgrid_err = dgrid_abs / max(float(ref.abs().max()), 1e-12)
+            # Through the autograd Function, twice: the same kernels on the
+            # same cotangent, so bit-equal to the direct call.
             dgrids = []
             for _ in range(2):
                 gr = grid.detach().requires_grad_()
                 (cuda_warp.grid_sample_train(image, gr).float() * g.float()).sum().backward()
                 dgrids.append(gr.grad)
-            dref = cuda_warp.grid_sample_grad(g, ref[1], ref[2], grid, size, size)
             torch.cuda.synchronize()
-            if not torch.equal(dgrids[0], dgrids[1]):
-                raise AssertionError(f"K3 {tag} {gname}: two backward calls differ")
-            dgrid_err = float((dgrids[0] - dref).abs().max()) / max(float(dref.abs().max()), 1e-12)
+            if not (torch.equal(dgrids[0], dgrids[1]) and torch.equal(dgrids[0], first)):
+                raise AssertionError(f"K3 {tag} {gname}: the autograd gradient differs between calls or from the direct call")
 
-            def fwd_bwd(grid=grid):
-                _, dx, dy = cuda_warp.grid_sample_corners(image, grid)
-                return cuda_warp.grid_sample_grad(g, dx, dy, grid, size, size)
+            def fwd(grid=grid):
+                return cuda_warp.grid_sample_train_forward(image, grid)
 
+            def bwd(grid=grid):
+                return cuda_warp.grid_sample_grid_backward(g, image, grid)
+
+            def pair(grid=grid):
+                return cuda_warp.grid_sample_train_forward(image, grid), cuda_warp.grid_sample_grid_backward(g, image, grid)
+
+            def pair_autograd(grid=grid):
+                gr = grid.detach().requires_grad_()
+                return torch.autograd.grad(cuda_warp.grid_sample_train(image, gr), gr, g)
+
+            # The PyTorch calls of the same functions; they take the grid in
+            # the image's dtype (cast before the clock).
             image_nchw, g_nchw, grid_t = image.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2), grid.to(dtype)
 
-            def library(grid_t=grid_t):
-                gr = grid_t.detach().requires_grad_()
-                out = torch.nn.functional.grid_sample(image_nchw, gr, mode="bilinear", padding_mode="border", align_corners=False)
-                return torch.autograd.grad(out, gr, g_nchw)
+            def library_fwd(grid_t=grid_t):
+                return torch.nn.functional.grid_sample(image_nchw, grid_t, mode="bilinear", padding_mode="border",
+                                                       align_corners=False)
 
-            k_ms = _time_ms(lambda: cuda_warp.grid_sample_corners(image, grid))
-            p_ms = _time_ms(lambda: cuda_warp.grid_sample_corners_plain(image, grid))
-            kb_ms = _time_ms(fwd_bwd)
-            l_ms = _time_ms(library)
-            k_dev, kb_dev, l_dev = (_device_ms(f, reps=100) for f in (lambda: cuda_warp.grid_sample_corners(image, grid), fwd_bwd, library))
-            print(f"K3 {tag:4s} N={n} {size}^2x4 {gname}: max_abs_err out {errs[0]:.3e} dx {errs[1]:.3e} dy {errs[2]:.3e}, "
-                  f"dgrid scaled {dgrid_err:.2e} (bar {K3_DGRID_ATOL:.0e}); two calls bit-identical; device time (100 "
-                  f"calls back to back) kernel {k_dev:.4f} ms, forward + grid backward {kb_dev:.4f} ms, F.grid_sample "
-                  f"forward + grid backward {l_dev:.4f} ms; one event pair a call: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
-                  f"ms, forward + grid backward {kb_ms:.4f} ms, F.grid_sample forward + grid backward {l_ms:.4f} ms")
-            if not dgrid_err <= K3_DGRID_ATOL:
-                raise AssertionError(f"K3 {tag} {gname}: dgrid scaled error {dgrid_err} over {K3_DGRID_ATOL}")
-            results[f"{tag}_err"] = max(results[f"{tag}_err"], max(errs))
+            def library_bwd(grid_t=grid_t):  # bilinear (0), border (1), the grid's gradient alone
+                return torch.ops.aten.grid_sampler_2d_backward(g_nchw, image_nchw, grid_t, 0, 1, False, [False, True])[1]
+
+            def library_pair(grid_t=grid_t):
+                return library_fwd(grid_t), library_bwd(grid_t)
+
+            def library_autograd(grid_t=grid_t):
+                gr = grid_t.detach().requires_grad_()
+                return torch.autograd.grad(library_fwd(gr), gr, g_nchw)
+
+            graph = {k: _graph_ms(f) for k, f in (("fwd_ms", fwd), ("bwd_ms", bwd), ("pair_ms", pair),
+                                                    ("library_fwd_ms", library_fwd), ("library_bwd_ms", library_bwd),
+                                                    ("pair_library_ms", library_pair))}
+            b2b = {k: _device_ms(f, reps=100) for k, f in (("pair_b2b_ms", pair), ("pair_autograd_ms", pair_autograd),
+                                                          ("pair_library_autograd_ms", library_autograd))}
+            plain = {"plain_fwd_ms": _time_ms(lambda: cuda_warp.grid_sample_bilinear_border(image, grid)),
+                     "plain_bwd_ms": _time_ms(lambda: cuda_warp.grid_sample_grid_backward_plain(g, image, grid))}
+            # Bytes: each input read once, each output written once (the
+            # corner gathers hit L2).  Operations: f32 on the CUDA cores in
+            # both dtypes, each its own instruction (twice the count at the
+            # f32 peak, which counts an FMA as two): 3 lerps a value
+            # forward; backward 14 a value (the two lerps' differences and
+            # products, dx, dy and the two channel sums).
+            bound_fwd = _bound(_nbytes(image, grid, out), 2.0 * 6.0 * out.numel(), "f32")
+            bound_bwd = _bound(_nbytes(g, image, grid, first), 2.0 * 14.0 * g.numel(), "f32")
+            pair_bound = bound_fwd["bound_ms"] + bound_bwd["bound_ms"]
+            print(f"K3 {tag:4s} N={n} {size}^2x4 {gname}: forward = K2 bit for bit, max_abs_err {out_err:.3e} (bar "
+                  f"{out_bar:.1e}); grid backward max_abs_err {dgrid_abs:.3e}, scaled {dgrid_err:.2e} (bar "
+                  f"{K3_DGRID_ATOL:.0e}); two calls and the autograd path bit-identical.  The card's own time (CUDA graph of "
+                  f"20 calls): forward {graph['fwd_ms']:.5f} ms (F.grid_sample {graph['library_fwd_ms']:.5f}), grid backward "
+                  f"{graph['bwd_ms']:.5f} ms (aten grid_sampler_2d_backward, grid only, {graph['library_bwd_ms']:.5f}), "
+                  f"pair {graph['pair_ms']:.5f} ms (library {graph['pair_library_ms']:.5f}); 100 calls back to back: pair "
+                  f"{b2b['pair_b2b_ms']:.5f} ms, through autograd {b2b['pair_autograd_ms']:.5f} ms, F.grid_sample forward + "
+                  f"grid backward through autograd {b2b['pair_library_autograd_ms']:.5f} ms; plain forward "
+                  f"{plain['plain_fwd_ms']:.4f} ms, plain backward {plain['plain_bwd_ms']:.4f} ms; bound forward "
+                  f"{bound_fwd['bound_ms']:.4f} ms ({bound_fwd['bound_by']}), backward {bound_bwd['bound_ms']:.4f} ms "
+                  f"({bound_bwd['bound_by']}), pair {pair_bound:.4f} ms, pair share {pair_bound / graph['pair_ms']:.3f}")
+            if not out_err <= out_bar or not dgrid_err <= K3_DGRID_ATOL:
+                raise AssertionError(f"K3 {tag} {gname}: forward error {out_err} (bar {out_bar}), dgrid scaled error "
+                                     f"{dgrid_err} (bar {K3_DGRID_ATOL})")
+            results[f"{tag}_err"] = max(results[f"{tag}_err"], out_err)
             results["dgrid_err"] = max(results["dgrid_err"], dgrid_err)
+            results["dgrid_abs_err"] = max(results["dgrid_abs_err"], dgrid_abs)
             if gname.startswith("smooth"):
-                results["ms"][tag], results["plain_ms"][tag] = k_dev, p_ms
-                results["fwd_bwd_ms"][tag], results["library_ms"][tag] = kb_dev, l_dev
-                # 3 lerps for out, 2 more for dx: 10 operations per value.
-                results["bound"][tag] = _bound(_nbytes(image, grid, *first), 10.0 * first[0].numel(), tag)
+                for k, v in (*graph.items(), *b2b.items(), *plain.items(), ("bound_fwd", bound_fwd), ("bound_bwd", bound_bwd)):
+                    results[k][tag] = v
     return results
 
 
@@ -1301,7 +1350,8 @@ def phase_body_training(torch, workdir: str, config, teacher_params) -> dict:
     run = jobs(os.path.join(workdir, "run"))
     trainer = run.make_body_trainer(phases)
     trainer.cfg.log_every_seconds = 0.0
-    counters = [cuda_warp.grid_sample_fast, cuda_warp.grid_sample_corners, cuda_poly_sin.poly_sin_forward,
+    counters = [cuda_warp.grid_sample_fast, cuda_warp.grid_sample_train_forward, cuda_warp.grid_sample_grid_backward,
+                cuda_poly_sin.poly_sin_forward,
                 cuda_poly_sin.poly_sin_backward, cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd,
                 cuda_conv.fused_affine_conv3_nchw, cuda_conv.fold_groupnorm_film]
     for c in counters:
@@ -1313,7 +1363,8 @@ def phase_body_training(torch, workdir: str, config, teacher_params) -> dict:
     launches = {c.__name__: c.launches for c in counters}
     print(f"body training: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, bf16 teacher and selective-f32 student, through "
           f"DistillationJobs.make_body_trainer(phases).train(), teacher mode_07 at full width (random): {wall:.2f} s; launches {launches}")
-    expected = {"grid_sample_fast": 5 * TRAIN_STEPS, "grid_sample_corners": TRAIN_STEPS, "poly_sin_forward": 9 * TRAIN_STEPS,
+    expected = {"grid_sample_fast": 5 * TRAIN_STEPS, "grid_sample_train_forward": TRAIN_STEPS,
+                "grid_sample_grid_backward": TRAIN_STEPS, "poly_sin_forward": 9 * TRAIN_STEPS,
                 "poly_sin_backward": 9 * TRAIN_STEPS, "sine_chain_t": 0, "sine_chain_t_bwd": 0,
                 "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * TRAIN_STEPS, "fold_groupnorm_film": K6_PER_TEACHER_CALL * TRAIN_STEPS}
     if launches != expected or result["examples_seen"] != total:
@@ -1773,18 +1824,43 @@ def main() -> int:
                 "bound_share": k4["bound"]["bf16"]["bound_ms"] / k4["ms"]["bf16"], "calls": k4["calls"],
             },
             {
-                "name": "grid_sample_corners", "route": "cuda", "source": "tha4_tpu_torch/csrc/warp.cu",
+                "name": "grid_sample_train_forward", "route": "cuda", "source": "tha4_tpu_torch/csrc/warp.cu",
                 "replaces": "tha4_tpu/ops/pallas_warp.py:239",
-                "launches": body["launches"]["grid_sample_corners"],
-                "max_abs_err": k3["f32_err"], "ms": k3["ms"]["bf16"], "plain_ms": k3["plain_ms"]["bf16"],
-                **k3["bound"]["bf16"], "library_ms": k3["library_ms"]["bf16"],
-                "max_abs_err_bf16": k3["bf16_err"], "max_scaled_err_dgrid": k3["dgrid_err"],
-                "fwd_bwd_ms": k3["fwd_bwd_ms"]["bf16"], "ms_f32": k3["ms"]["f32"], "plain_ms_f32": k3["plain_ms"]["f32"],
-                "bound_ms_f32": k3["bound"]["f32"]["bound_ms"], "fwd_bwd_ms_f32": k3["fwd_bwd_ms"]["f32"],
-                "library_ms_f32": k3["library_ms"]["f32"],
-                "timed": "the head warp's forward with dx/dy, N=8, 512^2x4, smooth grid, bf16 image; fwd_bwd adds the elementwise "
-                         "grid backward; library: F.grid_sample forward + grid backward (compare with fwd_bwd_ms), grid in the "
-                         "image dtype; launches from the body training run",
+                "launches": body["launches"]["grid_sample_train_forward"],
+                "max_abs_err": k3["f32_err"], "ms": k3["fwd_ms"]["bf16"], "plain_ms": k3["plain_fwd_ms"]["bf16"],
+                **k3["bound_fwd"]["bf16"], "library_ms": k3["library_fwd_ms"]["bf16"],
+                "bound_share": k3["bound_fwd"]["bf16"]["bound_ms"] / k3["fwd_ms"]["bf16"],
+                "max_abs_err_bf16": k3["bf16_err"], "ms_f32": k3["fwd_ms"]["f32"], "plain_ms_f32": k3["plain_fwd_ms"]["f32"],
+                "bound_ms_f32": k3["bound_fwd"]["f32"]["bound_ms"], "library_ms_f32": k3["library_fwd_ms"]["f32"],
+                "bound_share_f32": k3["bound_fwd"]["f32"]["bound_ms"] / k3["fwd_ms"]["f32"],
+                "timed": "K3's forward (K2's kernel, counted apart) at the body head's warp, N=8, 512^2x4, smooth grid, bf16 "
+                         "image; *_f32 with an f32 image; the card's own time (a CUDA graph of 20 calls); plain: one event "
+                         "pair a call; library: F.grid_sample, grid in the image dtype; launches from the body training run",
+            },
+            {
+                "name": "grid_sample_grid_backward", "route": "cuda", "source": "tha4_tpu_torch/csrc/warp.cu",
+                "replaces": "tha4_tpu/ops/pallas_warp.py:336",
+                "launches": body["launches"]["grid_sample_grid_backward"],
+                "max_abs_err": k3["dgrid_abs_err"], "max_scaled_err": k3["dgrid_err"],
+                "ms": k3["bwd_ms"]["bf16"], "plain_ms": k3["plain_bwd_ms"]["bf16"],
+                **k3["bound_bwd"]["bf16"], "library_ms": k3["library_bwd_ms"]["bf16"],
+                "bound_share": k3["bound_bwd"]["bf16"]["bound_ms"] / k3["bwd_ms"]["bf16"],
+                "ms_f32": k3["bwd_ms"]["f32"], "plain_ms_f32": k3["plain_bwd_ms"]["f32"],
+                "bound_ms_f32": k3["bound_bwd"]["f32"]["bound_ms"], "library_ms_f32": k3["library_bwd_ms"]["f32"],
+                "bound_share_f32": k3["bound_bwd"]["f32"]["bound_ms"] / k3["bwd_ms"]["f32"],
+                **{f"pair_{k}{sfx}": v for tag, sfx in (("bf16", ""), ("f32", "_f32")) for k, v in (
+                    ("ms", k3["pair_ms"][tag]), ("library_ms", k3["pair_library_ms"][tag]),
+                    ("bound_ms", k3["bound_fwd"][tag]["bound_ms"] + k3["bound_bwd"][tag]["bound_ms"]),
+                    ("bound_share", (k3["bound_fwd"][tag]["bound_ms"] + k3["bound_bwd"][tag]["bound_ms"]) / k3["pair_ms"][tag]),
+                    ("b2b_ms", k3["pair_b2b_ms"][tag]), ("autograd_ms", k3["pair_autograd_ms"][tag]),
+                    ("library_autograd_ms", k3["pair_library_autograd_ms"][tag]))},
+                "timed": "K3's grid backward at the body head's warp, N=8, 512^2x4, smooth grid, bf16 image and g; *_f32 "
+                         "in f32; the card's own time (a CUDA graph of 20 calls); plain: one event pair a call; library: "
+                         "aten.grid_sampler_2d_backward with the grid's gradient alone, grid in the image dtype; pair_*: "
+                         "forward + grid backward (pair_ms, pair_library_ms: CUDA graphs of direct calls; pair_b2b_ms: 100 "
+                         "direct calls back to back; pair_autograd_ms: 100 through grid_sample_train and autograd.grad; "
+                         "pair_library_autograd_ms: F.grid_sample and autograd.grad, 100 back to back); pair_bound_ms: "
+                         "the two kernels' bounds added; launches from the body training run",
             },
             {
                 "name": "poly_sin_forward", "route": "cuda", "source": "tha4_tpu_torch/csrc/poly_sin.cu",

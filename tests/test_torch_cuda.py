@@ -163,31 +163,68 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
             )
 
 
+def _warp_grid(rng, kind, n, h, w):
+    """(N, H, W, 2) f32 grids for K3: ``border``, uniform past [-1, 1] with
+    the first and last texel centres of each axis pasted in (there the
+    unclamped coordinate is exactly 0 or size - 1, and the strict mask is
+    0; exactly so for sizes that are powers of two); ``smooth``, identity
+    plus a smooth field of up to 8 px; ``far``, a shift of 40 % of the image
+    plus that field."""
+    ident = identity_grid(h, w).numpy()[None].repeat(n, 0)
+    coarse = torch.from_numpy(rng.standard_normal((n, 2, 6, 6)).astype(np.float32))
+    field = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    field = (field / field.abs().max()).permute(0, 2, 3, 1).numpy() * (16.0 / min(h, w))
+    if kind == "border":
+        grid = rng.uniform(-1.2, 1.2, (n, h, w, 2)).astype(np.float32)
+        for i in (0, -1):
+            grid[:, i, :, 1] = ident[:, i, :, 1]
+            grid[:, :, i, 0] = ident[:, :, i, 0]
+        return grid
+    return (ident + field + (0.8 if kind == "far" else 0.0)).astype(np.float32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_corners_kernel_and_grid_gradient_match_plain(card, dtype):
-    """K3: out, dx and dy against the plain version (f32 lerps in the same
-    order: out equals K2's, dx / dy to f32 rounding), and dgrid through the
-    autograd Function within 2e-5 of its largest (tests/test_pallas_warp.py:44-60)."""
+@pytest.mark.parametrize("kind", ["border", "smooth", "far"])
+def test_warp_corners_kernel_and_grid_gradient_match_plain(card, dtype, kind):
+    """K3 on the card: its forward (K2's kernel, counted apart) equals K2
+    bit for bit; the grid-backward kernel is within 2e-5 of its largest
+    |dgrid| of its plain version and of the CPU's autograd gradient
+    (tests/test_pallas_warp.py:44-60), gives exact zeros where the strict
+    mask is 0, and two calls are bit-identical; each launch counter moves
+    by one a call; a bf16 grid and a non-contiguous g raise."""
     rng = np.random.default_rng(8)
-    image = torch.from_numpy(rng.uniform(-1, 1, (2, 96, 160, 4)).astype(np.float32)).to(card, dtype)
-    grid = torch.from_numpy(rng.uniform(-1.2, 1.2, (2, 96, 160, 2)).astype(np.float32)).to(card)
-    before = cuda_warp.grid_sample_corners.launches
-    out, dx, dy = cuda_warp.grid_sample_corners(image, grid)
+    n, h, w = 2, 64, 128
+    image = torch.from_numpy(rng.uniform(-1, 1, (n, h, w, 4)).astype(np.float32)).to(card, dtype)
+    grid = torch.from_numpy(_warp_grid(rng, kind, n, h, w)).to(card)
+    g = torch.from_numpy(rng.standard_normal((n, h, w, 4)).astype(np.float32)).to(card, dtype)
+    fwd, bwd = cuda_warp.grid_sample_train_forward, cuda_warp.grid_sample_grid_backward
+    before = fwd.launches, bwd.launches
+    out = fwd(image, grid)
+    first = bwd(g, image, grid)
+    again = bwd(g, image, grid)
     torch.cuda.synchronize()
-    assert cuda_warp.grid_sample_corners.launches == before + 1
-    ref = cuda_warp.grid_sample_corners_plain(image, grid)
-    assert out.dtype == dtype and dx.dtype == dy.dtype == torch.float32
-    assert torch.equal(out, cuda_warp.grid_sample_fast(image, grid))
-    for a, r in zip((out, dx, dy), ref):
-        assert float((a.float() - r.float()).abs().max()) <= (1e-5 if a.dtype == torch.float32 else 2.0**-7)
-    g = torch.from_numpy(rng.standard_normal((2, 96, 160, 4)).astype(np.float32)).to(card, dtype)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert out.dtype == dtype and torch.equal(out, cuda_warp.grid_sample_fast(image, grid))
+    assert first.dtype == torch.float32 and first.shape == (n, h, w, 2) and torch.equal(first, again)
+    ref = cuda_warp.grid_sample_grid_backward_plain(g, image, grid)
+    scale = float(ref.abs().max())
+    assert scale > 0 and float((first - ref).abs().max()) <= 2e-5 * scale
+    if kind == "border":
+        iy = ((grid[..., 1] + 1.0) * h - 1.0) * 0.5
+        ix = ((grid[..., 0] + 1.0) * w - 1.0) * 0.5
+        assert not iy[:, 0].any() and not ix[:, :, 0].any() and (iy[:, -1] == h - 1).all() and (ix[:, :, -1] == w - 1).all()
+        assert not first[:, [0, -1], :, 1].any() and not first[:, :, [0, -1], 0].any()
     grads = []
     for device in (card, "cpu"):
         gr = grid.detach().to(device).requires_grad_()
         (cuda_warp.grid_sample_train(image.to(device), gr).float() * g.to(device).float()).sum().backward()
         grads.append(gr.grad.cpu())
-    scale = float(grads[1].abs().max())
-    assert float((grads[0] - grads[1]).abs().max()) <= 2e-5 * scale
+    assert float((grads[0] - grads[1]).abs().max()) <= 2e-5 * float(grads[1].abs().max())
+    with pytest.raises(ValueError, match="grid dtype"):
+        bwd(g, image, grid.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(g.transpose(1, 2).contiguous().transpose(1, 2), image, grid)
+    assert bwd.launches == before[1] + 2 + 1  # the autograd call on the card
 
 
 def test_bare_warp_refuses_a_cuda_grad_grid(card):
@@ -219,20 +256,22 @@ def test_poly_sin_kernels_match_plain(card, a_dtype, out_dtype):
 
 
 def test_body_student_step_launches_poly_sin_and_k3(card):
-    """The body student's training forward and backward on the card: one
-    K3 and no K2, 9 poly_sin launches each way, no K1 or K4."""
+    """The body student's training forward and backward on the card: K3's
+    forward and its grid backward once each and no bare K2, 9 poly_sin
+    launches each way, no K1 or K4."""
     from tha4_tpu_torch.ops import cuda_poly_sin
 
     student = siren.SirenMorpher(generator=torch.Generator().manual_seed(3)).to(card)
     image = torch.rand((1, 512, 512, 4), device=card, dtype=torch.bfloat16) * 2 - 1
     pose = torch.rand((1, 45), device=card)
-    counters = [cuda_poly_sin.poly_sin_forward, cuda_poly_sin.poly_sin_backward, cuda_warp.grid_sample_corners,
-                cuda_warp.grid_sample_fast, cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd]
+    counters = [cuda_poly_sin.poly_sin_forward, cuda_poly_sin.poly_sin_backward, cuda_warp.grid_sample_train_forward,
+                cuda_warp.grid_sample_grid_backward, cuda_warp.grid_sample_fast, cuda_siren.sine_chain_t,
+                cuda_siren.sine_chain_t_bwd]
     before = [c.launches for c in counters]
     outs = siren.siren_morpher_train_apply(student, image, pose, torch.bfloat16, mixed=True)
     sum(o.float().mean() for o in outs).backward()
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [9, 9, 1, 0, 0, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == [9, 9, 1, 1, 0, 0, 0]
     assert student.last_linear.weight.grad[0:2].abs().max() > 0
 
 

@@ -1,11 +1,14 @@
 """K3, the differentiable warp of the PyTorch port, against the JAX package.
 
-``cuda_warp.grid_sample_corners_plain`` is the plain version of the CUDA
-kernel K3 (``csrc/warp.cu``); on the CPU ``grid_sample_train`` runs it, with
-the same elementwise backward the card runs.  Its forward and its grid
-gradient are held against ``jax.grad`` over the exact warp
-(``tha4_tpu/ops/warp.py:grid_sample_bilinear_border``) and over the Pallas
-warp's custom VJP (``pallas_warp.grid_sample_fast``, interpreted as
+K3's forward is K2's kernel; its backward, ``grid_sample_grid_backward``
+(``csrc/warp.cu``), gathers the corners again.  On the CPU both run their
+plain versions: ``grid_sample_bilinear_border`` and
+``grid_sample_grid_backward_plain``, the JAX package's elementwise formula
+over ``grid_sample_corners_plain``'s fields (the TPU corners kernel's
+outputs).  The fields, the backward and the gradient through
+``grid_sample_train`` are held against ``jax.grad`` over the exact warp
+(``tha4_tpu/ops/warp.py:grid_sample_bilinear_border``) and against the
+Pallas warp's custom VJP (``pallas_warp.grid_sample_fast``, interpreted as
 tests/test_pallas_warp.py:18-25 runs it), at that test's bar: 2e-5 of the
 gradient's largest magnitude, at 128^2.
 """
@@ -79,8 +82,9 @@ def test_corners_forward_matches_jax_and_k2():
 
 
 def test_corners_forward_matches_interpreted_pallas_fields(interpret):
-    """K3's dx / dy against the Pallas kernel's own (``_grid_sample_fast_fwd``
-    residuals, NCHW there) inside its window budget."""
+    """The plain dx / dy against the Pallas kernel's own
+    (``_grid_sample_fast_fwd`` residuals, NCHW there) inside its window
+    budget."""
     size = 128
     image, grid = _image(2, 1, size), _smooth_grid(2, 1, size)
     out_ref, (dx_ref, dy_ref, *_) = pallas_warp._grid_sample_fast_fwd(jnp.asarray(image), jnp.asarray(grid))
@@ -181,16 +185,98 @@ def test_bare_k2_refuses_a_gradient():
         assert cuda_warp.grid_sample_fast(image, grid).shape == (1, 8, 8, 4)
 
 
-def test_corners_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
+def _bf16_exact(a, dtype):
+    """``a`` in ``dtype`` as a torch tensor and as the same values in numpy f32."""
+    t = torch.from_numpy(a).to(dtype)
+    return t, t.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_backward_plain_matches_jax_vjp_of_interpreted_pallas(interpret, dtype):
+    """K3's plain backward against ``jax.vjp`` of the Pallas warp for a
+    random cotangent, with an f32 and a bf16 image (the cotangent in the
+    output's dtype, as autograd hands it over)."""
+    size = 128
+    rng = np.random.default_rng(20)
+    image, image_np = _bf16_exact(_image(20, 1, size), dtype)
+    grid = _smooth_grid(20, 1, size)
+    g, g_np = _bf16_exact(rng.standard_normal((1, size, size, 4)).astype(np.float32), dtype)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    out, vjp = jax.vjp(lambda gr: pallas_warp.grid_sample_fast(jnp.asarray(image_np).astype(jdtype), gr), jnp.asarray(grid))
+    (ref,) = vjp(jnp.asarray(g_np).astype(out.dtype))
+    ref = np.asarray(ref)
+    dgrid = cuda_warp.grid_sample_grid_backward_plain(g, image, torch.from_numpy(grid))
+    assert dgrid.dtype == torch.float32 and dgrid.shape == (1, size, size, 2)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(dgrid.numpy() / scale, ref / scale, atol=GRAD_ATOL)
+
+
+def test_grid_backward_plain_matches_jax_bwd_on_its_own_residuals(interpret):
+    """``_grid_sample_fast_bwd`` over the residuals the interpreted Pallas
+    forward saved, against the plain backward from the image and the grid:
+    the same function, without the fields between forward and backward.
+    JAX's image cotangent is zero, as the port's."""
+    size = 128
+    rng = np.random.default_rng(21)
+    image, grid = _image(21, 2, size), _smooth_grid(21, 2, size)
+    g = rng.standard_normal((2, size, size, 4)).astype(np.float32)
+    _, residual = pallas_warp._grid_sample_fast_fwd(jnp.asarray(image), jnp.asarray(grid))
+    dimage_ref, ref = pallas_warp._grid_sample_fast_bwd(residual, jnp.asarray(g))
+    assert not np.asarray(dimage_ref).any()
+    ref = np.asarray(ref)
+    dgrid = cuda_warp.grid_sample_grid_backward_plain(torch.from_numpy(g), torch.from_numpy(image), torch.from_numpy(grid))
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(dgrid.numpy() / scale, ref / scale, atol=GRAD_ATOL)
+
+
+def test_autograd_saves_only_the_image_and_the_grid():
+    """The differentiable warp keeps no (N, Ho, Wo, 4) f32 field for its
+    backward: what autograd saves is the image and the grid themselves."""
+    rng = np.random.default_rng(22)
+    image = torch.from_numpy(rng.standard_normal((2, 16, 24, 4)).astype(np.float32))
+    grid = torch.from_numpy(rng.uniform(-1, 1, (2, 12, 20, 2)).astype(np.float32)).requires_grad_()
+    out = cuda_warp.grid_sample_train(image, grid)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 2
+    assert saved[0].data_ptr() == image.data_ptr() and torch.equal(saved[0], image)
+    assert saved[1].data_ptr() == grid.data_ptr() and torch.equal(saved[1], grid)
+    assert not any(t.shape == out.shape and t.dtype == torch.float32 for t in saved)
+
+
+def test_inference_image_still_trains():
+    """An image made under ``torch.inference_mode`` (a frame rendered before
+    training) cannot be saved for backward as it is; the warp keeps a normal
+    copy, and the grid's gradient is the one a normal image gives."""
+    rng = np.random.default_rng(23)
+    image_np = rng.standard_normal((1, 16, 16, 4)).astype(np.float32)
+    grid_np = rng.uniform(-1, 1, (1, 16, 16, 2)).astype(np.float32)
+    with torch.inference_mode():
+        frozen = torch.from_numpy(image_np).clone()
+    grads = []
+    for image in (frozen, torch.from_numpy(image_np)):
+        grid = torch.from_numpy(grid_np).requires_grad_()
+        (cuda_warp.grid_sample_train(image, grid) ** 2).sum().backward()
+        grads.append(grid.grad)
+    assert frozen.is_inference() and torch.equal(grads[0], grads[1])
+
+
+def test_grid_backward_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
+    """K3's wrappers on CPU tensors run the plain versions and count no
+    launch; on any device but the CPU and CUDA they raise."""
     rng = np.random.default_rng(7)
     image = torch.from_numpy(rng.standard_normal((1, 16, 16, 4)).astype(np.float32))
     grid = torch.from_numpy(rng.uniform(-1, 1, (1, 16, 16, 2)).astype(np.float32))
-    before = cuda_warp.grid_sample_corners.launches
-    for a, b in zip(cuda_warp.grid_sample_corners(image, grid), cuda_warp.grid_sample_corners_plain(image, grid)):
-        assert torch.equal(a, b)
-    assert cuda_warp.grid_sample_corners.launches == before
+    g = torch.from_numpy(rng.standard_normal((1, 16, 16, 4)).astype(np.float32))
+    before = cuda_warp.grid_sample_grid_backward.launches, cuda_warp.grid_sample_train_forward.launches
+    assert torch.equal(cuda_warp.grid_sample_grid_backward(g, image, grid),
+                       cuda_warp.grid_sample_grid_backward_plain(g, image, grid))
+    assert torch.equal(cuda_warp.grid_sample_train_forward(image, grid),
+                       cuda_warp.grid_sample_bilinear_border(image, grid))
+    assert (cuda_warp.grid_sample_grid_backward.launches, cuda_warp.grid_sample_train_forward.launches) == before
     with pytest.raises(ValueError, match="unsupported device"):
-        cuda_warp.grid_sample_corners(image.to("meta"), grid.to("meta"))
+        cuda_warp.grid_sample_grid_backward(g.to("meta"), image.to("meta"), grid.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_warp.grid_sample_train_forward(image.to("meta"), grid.to("meta"))
 
 
 def test_plain_warp_in_f64_matches_torch_grid_sample():
@@ -207,3 +293,21 @@ def test_plain_warp_in_f64_matches_torch_grid_sample():
     assert float((ours - ref).abs().max()) < 1e-12
     f32 = cuda_warp.grid_sample_bilinear_border(image.float(), grid.float())
     assert float((f32.double() - ref).abs().max()) > 1e-9
+
+
+def test_plain_grid_backward_in_f64_matches_torch_grid_sample():
+    """f64 inputs keep K3's plain backward in f64 (``ops.wide``), so an f64
+    reference run has no f32 step in its grid gradient: torch's own
+    ``grid_sample`` backward in f64 (the same strict border masks) agrees to
+    f64 rounding."""
+    rng = np.random.default_rng(24)
+    image = torch.from_numpy(_image(6, 2, 64)).double()
+    grid = torch.from_numpy(_smooth_grid(7, 2, 64, scale=0.2)).double()
+    g = torch.from_numpy(rng.standard_normal((2, 64, 64, 4)))
+    ours = cuda_warp.grid_sample_grid_backward_plain(g, image, grid)
+    gr = grid.clone().requires_grad_()
+    out = torch.nn.functional.grid_sample(image.permute(0, 3, 1, 2), gr, mode="bilinear", padding_mode="border",
+                                          align_corners=False)
+    (ref,) = torch.autograd.grad(out, gr, g.permute(0, 3, 1, 2))
+    assert ours.dtype == torch.float64
+    assert float((ours - ref).abs().max()) < 1e-12 * float(ref.abs().max())

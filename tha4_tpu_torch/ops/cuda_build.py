@@ -53,8 +53,8 @@ _SIGNATURES = {
                                     _I, _I, _I, _P],
     # image, grid, out, n, h, w, ho, wo, is_bf16, stream
     "tha4_grid_sample_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # image, grid, out, dx, dy, n, h, w, ho, wo, is_bf16, stream
-    "tha4_grid_sample_corners_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # g, image, grid, dgrid, n, h, w, ho, wo, is_bf16, stream
+    "tha4_grid_sample_grid_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # a, out, n, dtypes, stream
     "tha4_poly_sin_forward": [_P, _P, _L, _I, _P],
     # a, g, da, n, dtypes, stream

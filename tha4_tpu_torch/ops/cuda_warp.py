@@ -10,15 +10,21 @@ the TPU kernel there is no displacement window and no bf16 lerp weight, so
 autograd, so it refuses a grid or image that requires a gradient while grad
 mode is on: a bare K2 call must never drop a gradient silently.
 
-``grid_sample_train`` is the differentiable warp, the counterpart of the JAX
-``grid_sample_fast``'s custom VJP.  Its forward (K3,
-``grid_sample_corners``) also writes dOut/d(ix) and dOut/d(iy) per channel,
-f32, so the backward is elementwise with no second gather:
-dgrid = sum_c dout_c * D_c * clamp mask * size / 2.  The image is a constant:
-its cotangent is zero, the contract of ``pallas_warp.py:24-31``.  One
-``torch.autograd.Function`` serves both devices; only its forward differs
-(the kernel on CUDA, ``grid_sample_corners_plain`` on the CPU), so the CPU
-and the card share one backward formula.
+``grid_sample_train`` is the differentiable warp (K3), the counterpart of
+the JAX ``grid_sample_fast``'s custom VJP.  Its forward is K2's kernel
+(``grid_sample_train_forward``, counted apart from K2's bare calls), and it
+saves the image and the grid.  Its backward, ``grid_sample_grid_backward``,
+gathers the four corners again and forms dgrid = sum_c dout_c * D_c *
+clamp mask * size / 2, where D is dOut/d(ix) or dOut/d(iy).  The TPU kernel
+writes D in the forward instead, two f32 fields that at the body student's
+(8, 512^2, 4) are 67 MB written and read back; on an NVIDIA H100 80GB HBM3
+(700 W) one batch of images fits in its 50 MB L2, so the regather costs
+little: the pair moves 117 MB in bf16 and 185 MB in f32 (``csrc/warp.cu``
+has its times).  The image is a constant: its cotangent is zero,
+the contract of ``pallas_warp.py:24-31``.  One ``torch.autograd.Function``
+serves both devices; on the CPU the backward runs
+``grid_sample_grid_backward_plain``, the elementwise formula over
+``grid_sample_corners_plain``'s fields, the JAX residuals' plain mirror.
 """
 
 from __future__ import annotations
@@ -71,9 +77,10 @@ def grid_sample_bilinear_border(image: torch.Tensor, grid: torch.Tensor) -> torc
 
 
 def grid_sample_corners_plain(image: torch.Tensor, grid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of K3: (out in the image dtype, dx, dy f32), all
-    (N, Ho, Wo, C), in the f32 order of ``_fwd_corners_kernel``
-    (``pallas_warp.py:203-213``); ``out`` equals K2's."""
+    """The TPU corners kernel's outputs: (out in the image dtype, dx, dy
+    f32), all (N, Ho, Wo, C), in the f32 order of ``_fwd_corners_kernel``
+    (``pallas_warp.py:203-213``); ``out`` equals K2's.  The plain backward
+    is built on dx and dy."""
     v00, v01, v10, v11, tx, ty = _corners(image, grid)
     top_dx = v01 - v00
     bot_dx = v11 - v10
@@ -83,6 +90,25 @@ def grid_sample_corners_plain(image: torch.Tensor, grid: torch.Tensor) -> Tuple[
     out = (top + dy * ty).to(image.dtype)
     dx = top_dx + (bot_dx - top_dx) * ty
     return out, dx, dy
+
+
+def _forward(image: torch.Tensor, grid: torch.Tensor, wrapper) -> torch.Tensor:
+    """K2's kernel on CUDA tensors (anything it does not take raises),
+    counted on ``wrapper``; its plain version on CPU tensors; a
+    ``ValueError`` on any other device."""
+    device = image.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return grid_sample_bilinear_border(image, grid)
+        raise ValueError(f"{wrapper.__name__}: unsupported device {device}")
+    n, h, w, ho, wo, is_bf16 = _check(image, grid)
+    out = image.new_empty((n, ho, wo, 4))
+    status = cuda_build.library().tha4_grid_sample_forward(image.data_ptr(), grid.data_ptr(), out.data_ptr(), n, h, w, ho, wo,
+                                                 is_bf16, cuda_build.current_stream(device))
+    if status:
+        cuda_build.check(status, wrapper.__name__)
+    wrapper.launches += 1
+    return out
 
 
 def grid_sample_fast(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -96,88 +122,100 @@ def grid_sample_fast(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (grid.requires_grad or image.requires_grad):
         raise RuntimeError("grid_sample_fast has no gradient: warp a grid that requires grad "
                            "with grid_sample_train (ops.warp.apply_grid_change routes it)")
-    device = image.device
-    if device.type != "cuda":
-        if device.type == "cpu":
-            return grid_sample_bilinear_border(image, grid)
-        raise ValueError(f"grid_sample_fast: unsupported device {device}")
-    n, h, w, ho, wo, is_bf16 = _check(image, grid)
-    out = image.new_empty((n, ho, wo, 4))
-    status = cuda_build.library().tha4_grid_sample_forward(image.data_ptr(), grid.data_ptr(), out.data_ptr(), n, h, w, ho, wo,
-                                                 is_bf16, cuda_build.current_stream(device))
-    if status:
-        cuda_build.check(status, "grid_sample_fast")
-    grid_sample_fast.launches += 1
-    return out
+    return _forward(image, grid, grid_sample_fast)
 
 
 grid_sample_fast.launches = 0
 
 
-def grid_sample_corners(image: torch.Tensor, grid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3's forward: (out, dx, dy) as ``grid_sample_corners_plain`` returns
-    them.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel, and anything it does not take raises."""
-    if image.device.type == "cpu":
-        return grid_sample_corners_plain(image, grid)
-    if image.device.type != "cuda":
-        raise ValueError(f"grid_sample_corners: unsupported device {image.device}")
-    n, h, w, ho, wo, is_bf16 = _check(image, grid)
-    out = torch.empty((n, ho, wo, 4), dtype=image.dtype, device=image.device)
-    dx = torch.empty((n, ho, wo, 4), dtype=torch.float32, device=image.device)
-    dy = torch.empty_like(dx)
-    stream = cuda_build.current_stream(image.device)
-    status = cuda_build.library().tha4_grid_sample_corners_forward(
-        image.data_ptr(), grid.data_ptr(), out.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        n, h, w, ho, wo, is_bf16, stream,
-    )
-    cuda_build.check(status, "grid_sample_corners")
-    grid_sample_corners.launches += 1
-    return out, dx, dy
+def grid_sample_train_forward(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """K3's forward, K2's kernel launched for the differentiable warp and
+    counted apart from K2's bare calls; the plain version on the CPU."""
+    return _forward(image, grid, grid_sample_train_forward)
 
 
-grid_sample_corners.launches = 0
+grid_sample_train_forward.launches = 0
 
 
 def grid_sample_grad(g: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor, grid: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """dgrid from the output's cotangent ``g`` and K3's fields
-    (``pallas_warp.py:336-350``): the channel sums of g * D, zero where the
-    unnormalised coordinate is clamped (strict masks), times size / 2; in the
-    grid's dtype."""
-    dout = g.float()
+    """dgrid from the output's cotangent ``g`` and the corners kernel's
+    fields (``pallas_warp.py:336-350``): the channel sums of g * D, zero
+    where the unnormalised coordinate is clamped (strict masks), times
+    size / 2; in the grid's dtype."""
+    dout = wide(g)
     dv_dix = (dout * dx).sum(dim=-1)
     dv_diy = (dout * dy).sum(dim=-1)
-    ix_un = ((grid[..., 0].float() + 1.0) * w - 1.0) * 0.5
-    iy_un = ((grid[..., 1].float() + 1.0) * h - 1.0) * 0.5
-    gxmask = ((ix_un > 0.0) & (ix_un < w - 1.0)).float()
-    gymask = ((iy_un > 0.0) & (iy_un < h - 1.0)).float()
+    ix_un = ((wide(grid[..., 0]) + 1.0) * w - 1.0) * 0.5
+    iy_un = ((wide(grid[..., 1]) + 1.0) * h - 1.0) * 0.5
+    gxmask = ((ix_un > 0.0) & (ix_un < w - 1.0)).to(dv_dix.dtype)
+    gymask = ((iy_un > 0.0) & (iy_un < h - 1.0)).to(dv_diy.dtype)
     return torch.stack([dv_dix * gxmask * (0.5 * w), dv_diy * gymask * (0.5 * h)], dim=-1).to(grid.dtype)
 
 
+def grid_sample_grid_backward_plain(g: torch.Tensor, image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The plain version of K3's backward: dgrid (N, Ho, Wo, 2) from the
+    output's cotangent, the image and the grid, the JAX package's
+    elementwise formula over the corners kernel's fields (f64 throughout
+    for f64 inputs)."""
+    _, dx, dy = grid_sample_corners_plain(image, grid)
+    return grid_sample_grad(g, dx, dy, grid, image.shape[1], image.shape[2])
+
+
+def grid_sample_grid_backward(g: torch.Tensor, image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """K3's backward: dgrid (N, Ho, Wo, 2) f32 for the output's cotangent
+    ``g`` (N, Ho, Wo, 4, the image's dtype).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel, and anything it does not take
+    raises."""
+    device = image.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return grid_sample_grid_backward_plain(g, image, grid)
+        raise ValueError(f"grid_sample_grid_backward: unsupported device {device}")
+    n, h, w, ho, wo, is_bf16 = _check(image, grid)
+    if g.device != device or g.dtype != image.dtype or g.shape != (n, ho, wo, 4):
+        raise ValueError(f"g must be (N, Ho, Wo, 4) = {(n, ho, wo, 4)} in {image.dtype} on {device}, "
+                         f"got {tuple(g.shape)} {g.dtype} on {g.device}")
+    if not g.is_contiguous() or g.data_ptr() % (8 if is_bf16 else 16):
+        raise ValueError("g must be contiguous and aligned for vector loads")
+    dgrid = torch.empty((n, ho, wo, 2), dtype=torch.float32, device=device)
+    status = cuda_build.library().tha4_grid_sample_grid_backward(
+        g.data_ptr(), image.data_ptr(), grid.data_ptr(), dgrid.data_ptr(), n, h, w, ho, wo, is_bf16,
+        cuda_build.current_stream(device),
+    )
+    cuda_build.check(status, "grid_sample_grid_backward")
+    grid_sample_grid_backward.launches += 1
+    return dgrid
+
+
+grid_sample_grid_backward.launches = 0
+
+
 class GridSampleFunction(torch.autograd.Function):
-    """K3 forward, elementwise backward; gradients reach the grid only."""
+    """K3: K2's kernel forward, the regathering backward; gradients reach
+    the grid only."""
 
     @staticmethod
     def forward(ctx, image, grid):
-        out, dx, dy = grid_sample_corners(image, grid)
-        ctx.save_for_backward(dx, dy, grid)
-        ctx.image_shape, ctx.image_dtype = image.shape, image.dtype
+        out = grid_sample_train_forward(image, grid)
+        if image.is_inference():
+            # An inference tensor cannot be saved for backward: keep a
+            # normal copy of it (a frame rendered under inference_mode).
+            with torch.inference_mode(False):
+                image = image.clone()
+        ctx.save_for_backward(image, grid)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        dx, dy, grid = ctx.saved_tensors
-        _, h, w, _ = ctx.image_shape
-        dgrid = grid_sample_grad(g, dx, dy, grid, h, w) if ctx.needs_input_grad[1] else None
-        dimage = None
-        if ctx.needs_input_grad[0]:
-            dimage = torch.zeros(ctx.image_shape, dtype=ctx.image_dtype, device=g.device)
+        image, grid = ctx.saved_tensors
+        dgrid = grid_sample_grid_backward(g.contiguous(), image, grid) if ctx.needs_input_grad[1] else None
+        dimage = torch.zeros_like(image) if ctx.needs_input_grad[0] else None
         return dimage, dgrid
 
 
 def grid_sample_train(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """The differentiable warp: K3 forward (its plain version on the CPU),
-    gradient to the grid only; the image's cotangent is zero."""
+    """The differentiable warp: K3 (its plain version on the CPU), gradient
+    to the grid only; the image's cotangent is zero."""
     return GridSampleFunction.apply(image, grid)
 
 

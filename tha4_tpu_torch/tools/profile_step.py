@@ -75,8 +75,10 @@ GROUPS = (
     ("K1 sine_chain", ("sine_chain_kernel", "sine_chain_tc_kernel")),
     ("K4 sine_chain_bwd", ("sine_chain_bwd_kernel", "sum_slabs_kernel", "sine_chain_bwd_tc_kernel", "sine_chain_dw_kernel",
                            "column_sum_kernel", "dpose_kernel")),
-    ("K2 warp", ("grid_sample_kernel",)),
-    ("K3 warp corners", ("grid_sample_corners_kernel",)),
+    ("K2 warp, K3 forward", ("grid_sample_kernel",)),
+    # grid_sample_corners_kernel: K3's forward in trees whose backward was
+    # elementwise over its dx / dy fields, so that --root can profile them.
+    ("K3 warp", ("grid_sample_grid_backward_kernel", "grid_sample_corners_kernel")),
     ("K5 poly_sin", ("poly_sin_",)),
     ("K6 affine_silu_conv3", ("affine_silu_conv3",)),
     ("K6 fold", ("group_norm_stats", "group_norm_fold")),
