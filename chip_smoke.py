@@ -26,6 +26,18 @@ Phases, one or more lines each:
    and K2 once per frame; the f32 frame must match the same model's plain
    run on the CPU; the bf16 frame must be within 28 dB PSNR of the f32 one;
    the headless CLI must write a PNG; ms/frame at batch 1 is printed;
+   then the serving slice on the same model: the frame bench
+   (``python -m tha4_tpu_torch.tools.bench``: its CUDA-graph scalar equal
+   to its eager scalar bit for bit, 400 K1 and 100 K2 launches at capture),
+   the puppeteer as a user runs it (``python -m
+   tha4_tpu_torch.apps.puppeteer --benchmark``: the iFacialMocap trace in
+   f32 writing one PNG a rendered frame, the mediapipe trace in bf16 with
+   ``--calibrate-head --save-calibration``, 300 synthetic bf16 frames; 4
+   K1 and 1 K2 launches a frame in each process), the f32 frames of the first 4 replayed poses against the CPU
+   and the bf16 ones against them (``utils.fidelity`` PSNR >= 28 dB, SSIM),
+   the first PNG equal to ``encode_display_u8`` of the same frame made in
+   this process, and the ``--web`` puppeteer and the student web poser on
+   ephemeral ports (4 K1 and 1 K2 launches a request); its seconds printed;
 6. K4 (``sine_chain_t_bwd``) against its plain version at the face
    student's training shape (N = 8, 128^2) and at body level 1 (N = 1,
    256^2, with prev), f32 and bf16: every gradient within its bar, two
@@ -94,7 +106,10 @@ Phases, one or more lines each:
     outputs equal ``mode_07.compute_outputs`` of the same teacher on the
     card in cuDNN's deterministic mode (two calls in its default mode are
     compared too: some of its f32 algorithms are not deterministic), ms per
-    pose at B = 1 is printed; ``mode_12.create_poser`` gives its 22 outputs.
+    pose at B = 1 is printed; ``mode_12.create_poser`` gives its 22 outputs;
+    then the web poser's ``--teacher`` handler on the same files, in this
+    process: /meta and /pose.png, 102 K6, 102 fold and 5 K2 launches a
+    request.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K2, K3's forward and grid backward, K4-K6, the fold, and K7 and the TPU
@@ -115,6 +130,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -233,6 +249,9 @@ _K6_SKIP_CONV = 2  # K6's skip modes: 0 none, 1 identity, 2 a 1x1 conv
 # deterministic mode (read: bit-equal; 3.1e-4 apart in its default mode).
 POSER_F32_ATOL = 1e-6
 POSES = 4
+# The frame bench (tha4_tpu_torch/tools/bench.py): its metric and frames.
+SERVING_METRIC = "student_512x512_frames_per_sec_per_chip"
+BENCH_FRAMES = 100
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rates.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -355,23 +374,6 @@ def _chain_bound(nbytes: float, macs: float, sine_ops: float, tag: str) -> dict:
 def _bound_text(b: dict) -> str:
     return (f"bound {b['bound_ms']:.4f} ms (products {b['products_ms']:.4f}, sine epilogue {b['epilogue_ms']:.4f}, "
             f"bytes {b['bytes_ms']:.4f})")
-
-
-def _bench_pose(pose_parameters, i: int) -> np.ndarray:
-    """The animated sweep of bench.py:59-72: blink, talk, head and body
-    sway, breathing."""
-    idx = pose_parameters.get_parameter_index
-    pose = pose_parameters.get_default_pose()
-    pose[idx("head_x")] = 0.6 * math.sin(i / 4.0)
-    pose[idx("head_y")] = math.sin(i / 10.0)
-    pose[idx("neck_z")] = 0.5 * math.sin(i / 6.0)
-    pose[idx("body_z")] = 0.4 * math.sin(i / 9.0)
-    pose[idx("breathing")] = 0.5 + 0.5 * math.sin(i / 5.0)
-    pose[idx("mouth_aaa")] = 0.5 + 0.5 * math.sin(i / 3.0)
-    blink = min(max(math.sin(i / 7.0) * 8.0 - 7.0, 0.0), 1.0)
-    pose[idx("eye_wink_left")] = blink
-    pose[idx("eye_wink_right")] = blink
-    return pose
 
 
 def phase_device(torch) -> str:
@@ -562,12 +564,13 @@ def phase_main_path(torch, workdir: str) -> dict:
     from tha4_tpu_torch.charmodel import CharacterModel
     from tha4_tpu_torch.charmodel.synthetic import FLOW_SCALE, write_random_character_model
     from tha4_tpu_torch.ops import cuda_siren, cuda_warp
+    from tha4_tpu_torch.tools import bench
 
     yaml_path = write_random_character_model(os.path.join(workdir, "model"), seed=SEED)
     model = CharacterModel.load(yaml_path)
     image = model.get_character_image()
     posers = {"bf16": model.get_poser(torch.bfloat16, "cuda"), "f32": model.get_poser(torch.float32, "cuda")}
-    poses = [_bench_pose(posers["f32"].pose_parameters, i) for i in range(FRAMES)]
+    poses = list(bench.pose_sweep(posers["f32"].pose_parameters, FRAMES))
 
     cuda_siren.sine_chain_t.launches = 0
     cuda_warp.grid_sample_fast.launches = 0
@@ -647,7 +650,258 @@ def phase_main_path(torch, workdir: str) -> dict:
         ms[tag] = statistics.median(times)
         print(f"main path {tag}: {ms[tag]:.3f} ms/frame at B=1 (median of 30, host clock to synchronize, "
               f"image already on the card), {1000.0 / ms[tag]:.1f} frames/s")
-    return {"launches": launches, "ms": ms}
+    return {"launches": launches, "ms": ms, "yaml": yaml_path}
+
+
+def _subprocess(cmd, what: str, timeout: int = 300) -> list:
+    """Run one of the port's entry points as a user would; its stdout lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *cmd], cwd=root, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    print(f"{what}: rc 0 in {time.perf_counter() - t0:.1f} s")
+    return proc.stdout.strip().splitlines()
+
+
+def _puppeteer_run(what: str, args: list) -> dict:
+    """``python -m tha4_tpu_torch.apps.puppeteer --benchmark ...`` on the card:
+    its benchmark line, with the rendered frames and the kernel launches of
+    the process (the warm-up frame included)."""
+    lines = _subprocess(["tha4_tpu_torch.apps.puppeteer", *args, "--benchmark", "--device", "cuda"], what)
+    line = next(l for l in lines if l.startswith("frames="))
+    print(f"  {line}")
+    fields = re.search(r"frames=(\d+) rendered=(\d+) latency mean=([\d.]+)ms p50=([\d.]+)ms p99=([\d.]+)ms "
+                       r"throughput=([\d.]+) fps \(pipeline depth 1\) on .*; launches K1 (\d+) K2 (\d+)$", line)
+    if fields is None:
+        raise AssertionError(f"{what}: unexpected benchmark line {line!r}")
+    frames, rendered, mean, p50, p99, fps, k1, k2 = fields.groups()
+    out = {"frames": int(frames), "rendered": int(rendered), "latency_mean_ms": float(mean), "latency_p50_ms": float(p50),
+           "latency_p99_ms": float(p99), "fps": float(fps), "k1": int(k1), "k2": int(k2)}
+    if not out["rendered"] or (out["k1"], out["k2"]) != (4 * (out["rendered"] + 1), out["rendered"] + 1):
+        raise AssertionError(f"{what}: {out['rendered']} frames rendered (and 1 warm-up) through K1 {out['k1']}, "
+                             f"K2 {out['k2']} launches; expected 4 and 1 a frame")
+    return out
+
+
+def _http_get(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as response:
+        return response.read()
+
+
+def _png_rgba(png: bytes, what: str) -> np.ndarray:
+    import io
+
+    import PIL.Image
+
+    pixels = np.asarray(PIL.Image.open(io.BytesIO(png)))
+    if pixels.shape != (512, 512, 4) or pixels.dtype != np.uint8:
+        raise AssertionError(f"{what}: a {pixels.shape} {pixels.dtype} image, not 512^2 RGBA uint8")
+    return pixels
+
+
+def _serve(server):
+    """Serve ``server`` on a daemon thread; returns the thread."""
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return thread
+
+
+def _stop(server, *threads) -> None:
+    server.shutdown()
+    server.server_close()
+    for thread in threads:
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("a server thread did not stop")
+
+
+def phase_serving(torch, workdir: str, yaml_path: str) -> dict:
+    """The serving slice on the card at full width: the frame bench and the
+    puppeteer as subprocesses, the puppeteer's frames against the CPU and its
+    PNGs, the --web puppeteer and the student web poser in-process."""
+    import PIL.Image
+
+    from tha4_tpu_torch.apps import puppeteer, web_poser
+    from tha4_tpu_torch.charmodel import CharacterModel
+    from tha4_tpu_torch.core import imagecodec
+    from tha4_tpu_torch.mocap.ifacialmocap_pose_converter import IFacialMocapPoseConverter
+    from tha4_tpu_torch.ops import cuda_siren, cuda_warp
+    from tha4_tpu_torch.utils import fidelity
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    ifm_trace = os.path.join(root, "tests", "fixtures", "ifacialmocap_trace.jsonl")
+    mp_trace = os.path.join(root, "tests", "fixtures", "mediapipe_trace.jsonl")
+    results = {}
+
+    lines = _subprocess(["tha4_tpu_torch.tools.bench", "--model", yaml_path], "bench (python -m tha4_tpu_torch.tools.bench)")
+    detail, headline = json.loads(lines[-2]), json.loads(lines[-1])
+    print(f"  {lines[-2]}\n  {lines[-1]}")
+    if set(headline) != {"metric", "value", "unit", "vs_baseline", "device"} or headline["metric"] != SERVING_METRIC:
+        raise AssertionError(f"bench: last line {headline}")
+    if not math.isfinite(detail["graph_scalar"]) or detail["graph_scalar"] != detail["eager_scalar"]:
+        raise AssertionError(f"bench: graph scalar {detail['graph_scalar']!r} != eager scalar {detail['eager_scalar']!r}")
+    if detail["launches_at_capture"] != {"sine_chain_t": 4 * BENCH_FRAMES, "grid_sample_fast": BENCH_FRAMES}:
+        raise AssertionError(f"bench: launches at capture {detail['launches_at_capture']}")
+    results["bench"] = {**detail, "headline": headline}
+
+    png_dir = os.path.join(workdir, "puppeteer_frames")
+    calibration = os.path.join(workdir, "calibration.json")
+    runs = {
+        "ifacialmocap_f32": _puppeteer_run("puppeteer file:ifacialmocap f32 --output-dir", [
+            "--model", yaml_path, "--source", f"file:{ifm_trace}", "--dtype", "f32", "--output-dir", png_dir]),
+        "mediapipe_bf16": _puppeteer_run("puppeteer file:mediapipe bf16 --calibrate-head --save-calibration", [
+            "--model", yaml_path, "--source", f"file:{mp_trace}", "--dtype", "bf16", "--calibrate-head",
+            "--save-calibration", calibration]),
+        "synthetic_bf16": _puppeteer_run("puppeteer synthetic bf16 300 frames", [
+            "--model", yaml_path, "--source", "synthetic", "--frames", "300", "--dtype", "bf16"]),
+    }
+    pngs = sorted(os.listdir(png_dir))
+    if len(pngs) != runs["ifacialmocap_f32"]["rendered"]:
+        raise AssertionError(f"puppeteer --output-dir: {len(pngs)} PNGs for {runs['ifacialmocap_f32']['rendered']} frames")
+    with open(calibration) as f:
+        kind = json.load(f)["kind"]
+    if kind != "MediaPipeFacePoseConverterArgs":
+        raise AssertionError(f"puppeteer --save-calibration: kind {kind}")
+    print(f"puppeteer: {len(pngs)} PNGs for {len(pngs)} rendered frames; the saved calibration is a {kind}")
+    results["puppeteer"] = runs
+
+    model = CharacterModel.load(yaml_path)
+    image = torch.from_numpy(model.get_character_image()).cuda()
+    posers = {"f32": model.get_poser(torch.float32, "cuda"), "bf16": model.get_poser(torch.bfloat16, "cuda")}
+    cpu_poser = model.get_poser(torch.float32, "cpu")
+    converter = IFacialMocapPoseConverter()
+    poses = [np.asarray(converter.convert(b), np.float32) for b in puppeteer.file_pose_stream(ifm_trace, POSES)]
+    counters = (cuda_siren.sine_chain_t, cuda_warp.grid_sample_fast)
+    for c in counters:
+        c.launches = 0
+    card = [posers["f32"].get_posing_outputs(image, pose) for pose in poses]
+    card_bf16 = [posers["bf16"].get_posing_outputs(image, pose)[0] for pose in poses]
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    if launches != {"sine_chain_t": 8 * POSES, "grid_sample_fast": 2 * POSES}:
+        raise AssertionError(f"puppeteer parity: launches {launches}")
+    blended = [(b[0].cpu().numpy(), f[0][0].cpu().numpy()) for b, f in zip(card_bf16, card)]
+    bf16_db = [fidelity.psnr(b, f) for b, f in blended]
+    bf16_ssim = [fidelity.ssim(b, f) for b, f in blended]
+    print(f"puppeteer bf16 vs f32 blended frames of the first 4 replayed poses: PSNR min {min(bf16_db):.2f} dB "
+          f"(bar {BF16_MIN_PSNR}), windowed SSIM min {min(bf16_ssim):.4f} (utils.fidelity)")
+    if not min(bf16_db) >= BF16_MIN_PSNR:
+        raise AssertionError(f"puppeteer bf16 vs f32: PSNR {min(bf16_db)} dB under {BF16_MIN_PSNR}")
+    worst = {name: 0.0 for name in OUTPUT_NAMES}
+    for pose, outs in zip(poses, card):
+        for name, a, b in zip(OUTPUT_NAMES, outs, cpu_poser.get_posing_outputs(model.get_character_image(), pose)):
+            worst[name] = max(worst[name], float((a.cpu() - b).abs().max()))
+    print("puppeteer f32 frames of the first 4 replayed poses, card vs CPU plain: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    for name, err in worst.items():
+        if not err <= FRAME_F32_ATOL[name]:
+            raise AssertionError(f"puppeteer f32 card vs CPU: {name} {err} over {FRAME_F32_ATOL[name]}")
+    written = np.asarray(PIL.Image.open(os.path.join(png_dir, "frame_000001.png")))
+    encoded = imagecodec.encode_display_u8(card[0][0])[0].cpu().numpy()
+    if not np.array_equal(written, encoded):
+        raise AssertionError(f"puppeteer PNG frame 1 differs from encode_display_u8 of the in-process frame in "
+                             f"{int((written != encoded).sum())} bytes")
+    print("puppeteer: the f32 run's frame_000001.png equals encode_display_u8 of the in-process f32 card frame, byte for byte")
+    results["parity"] = {"launches": launches, "max_abs_err": worst, "bf16_psnr_min": min(bf16_db),
+                         "bf16_ssim_min": min(bf16_ssim)}
+
+    stream = puppeteer.file_pose_stream(ifm_trace)
+    for c in counters:
+        c.launches = 0
+    server, state, render = puppeteer._make_web_server(0, posers["bf16"], image, IFacialMocapPoseConverter(),
+                                                       lambda: next(stream, None), False, save_dir=workdir)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    render.start()
+    serve = _serve(server)
+    try:
+        deadline = time.time() + 120
+        while not state["png"]:
+            if time.time() > deadline:
+                raise AssertionError("--web puppeteer: no frame within 120 s")
+            time.sleep(0.05)
+        frame = _png_rgba(_http_get(base + "/frame.png"), "--web puppeteer /frame.png")
+        calib = json.loads(_http_get(base + "/calib"))
+    finally:
+        state["stop"] = True
+        _stop(server, serve, render)
+    torch.cuda.synchronize()
+    web = {c.__name__: c.launches for c in counters}
+    if calib["kind"] != "IFacialMocapPoseConverterArgs" or not web["grid_sample_fast"] or web["sine_chain_t"] != 4 * web["grid_sample_fast"]:
+        raise AssertionError(f"--web puppeteer: /calib kind {calib['kind']}, launches {web}")
+    print(f"--web puppeteer (bf16, the ifacialmocap trace replayed): /frame.png {frame.shape[1]}x{frame.shape[0]} RGBA, "
+          f"/calib {len(calib['values'])} parameters; {web['grid_sample_fast']} frames through K1 {web['sine_chain_t']}, "
+          f"K2 {web['grid_sample_fast']} launches")
+
+    for c in counters:
+        c.launches = 0
+    state = web_poser._PoserState(posers["bf16"], image, posers["bf16"].pose_parameters)
+    server = web_poser.ThreadingHTTPServer(("127.0.0.1", 0), web_poser._make_handler(state))
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    serve = _serve(server)
+    per_request = []
+    try:
+        meta = json.loads(_http_get(base + "/meta"))
+        for pose in poses[:2]:
+            before = [c.launches for c in counters]
+            _png_rgba(_http_get(f"{base}/pose.png?i=0&p=" + ",".join(repr(float(v)) for v in pose)), "web poser /pose.png")
+            per_request.append(tuple(c.launches - b for c, b in zip(counters, before)))
+    finally:
+        _stop(server, serve)
+    if len(meta["params"]) != 45 or meta["output_length"] != 6 or any(r != (4, 1) for r in per_request):
+        raise AssertionError(f"web poser: {len(meta['params'])} params, {meta['output_length']} outputs, "
+                             f"(K1, K2) launches a request {per_request}")
+    print(f"web poser (student, bf16): /meta 45 params, /pose.png 512^2 RGBA; (K1, K2) launches a request {per_request}")
+    poser_launches = {c.__name__: c.launches for c in counters}
+    results["launches"] = {name: launches[name] + web[name] + poser_launches[name] for name in poser_launches}
+    results["seconds"] = time.perf_counter() - t0
+    print(f"serving phase: {results['seconds']:.1f} s; in-process launches K1 {results['launches']['sine_chain_t']}, "
+          f"K2 {results['launches']['grid_sample_fast']}")
+    return results
+
+
+def phase_web_teacher(torch, workdir: str) -> dict:
+    """``tha4-torch-web-poser --teacher`` in-process: the five full-width
+    random mode_07 ``.pt`` files that ``phase_teacher_poser`` wrote, through
+    ``mode_07.create_poser`` and the web poser's handler, on the card."""
+    from tha4_tpu_torch.apps import web_poser
+    from tha4_tpu_torch.core import imagecodec
+    from tha4_tpu_torch.ops import cuda_conv, cuda_warp
+    from tha4_tpu_torch.poser.modes import mode_07
+    from tha4_tpu_torch.tools import bench
+
+    files = {key: os.path.join(workdir, f"{key}.pt") for key in mode_07.NETWORK_KEYS}
+    poser = mode_07.create_poser(module_file_names=files, compute_dtype=torch.bfloat16, device="cuda")
+    image = torch.from_numpy(imagecodec.load_image_hwc(os.path.join(workdir, "character.png"))).cuda()
+    state = web_poser._PoserState(poser, image, poser.pose_parameters)
+    server = web_poser.ThreadingHTTPServer(("127.0.0.1", 0), web_poser._make_handler(state))
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    serve = _serve(server)
+    counters = (cuda_conv.fused_affine_conv3_nchw, cuda_conv.fold_groupnorm_film, cuda_warp.grid_sample_fast)
+    for c in counters:
+        c.launches = 0
+    per_request = []
+    try:
+        meta = json.loads(_http_get(base + "/meta"))
+        for pose in bench.pose_sweep(poser.pose_parameters, 2):
+            before = [c.launches for c in counters]
+            _png_rgba(_http_get(f"{base}/pose.png?i=0&p=" + ",".join(repr(float(v)) for v in pose)),
+                      "web poser --teacher /pose.png")
+            per_request.append(tuple(c.launches - b for c, b in zip(counters, before)))
+    finally:
+        _stop(server, serve)
+    torch.cuda.synchronize()
+    if len(meta["params"]) != 45 or meta["output_length"] != 33 or any(r != (K6_PER_TEACHER_CALL, K6_PER_TEACHER_CALL, 5) for r in per_request):
+        raise AssertionError(f"web poser --teacher: {len(meta['params'])} params, {meta['output_length']} outputs, "
+                             f"(K6, fold, K2) launches a request {per_request}")
+    print(f"web poser --teacher (bf16, five .pt files): /meta 45 params and 33 outputs, /pose.png 512^2 RGBA; "
+          f"(K6, fold, K2) launches a request {per_request}")
+    return {c.__name__: c.launches for c in counters}
 
 
 def phase_k4(torch, face, body) -> dict:
@@ -1591,6 +1845,7 @@ def phase_teacher_poser(torch, workdir: str, teacher_params) -> dict:
     from tha4_tpu_torch.core import imagecodec
     from tha4_tpu_torch.ops import cuda_conv, cuda_warp
     from tha4_tpu_torch.poser.modes import mode_07, mode_12
+    from tha4_tpu_torch.tools import bench
 
     files = {key: os.path.join(workdir, f"{key}.pt") for key in mode_07.NETWORK_KEYS}
     for key, path in files.items():
@@ -1621,7 +1876,7 @@ def phase_teacher_poser(torch, workdir: str, teacher_params) -> dict:
     sizes = [512] * 6 + [256] * 5 + [192] * 8 + [128] * 14
     for tag, dtype in [("bf16", torch.bfloat16), ("f32", torch.float32)]:
         poser = mode_07.create_poser(module_file_names=files, compute_dtype=dtype, device="cuda")
-        poses = [_bench_pose(poser.pose_parameters, i) for i in range(POSES)]
+        poses = list(bench.pose_sweep(poser.pose_parameters, POSES))
         per_call, outs = [], []
         counters = (cuda_conv.fused_affine_conv3_nchw, cuda_warp.grid_sample_fast, cuda_conv.fold_groupnorm_film)
         for c in counters:
@@ -1690,7 +1945,7 @@ def phase_teacher_poser(torch, workdir: str, teacher_params) -> dict:
     face = mode_12.create_poser(module_file_names={k: files[k] for k in mode_12.NETWORK_KEYS}, compute_dtype=torch.bfloat16)
     cuda_conv.fused_affine_conv3_nchw.launches = 0
     cuda_warp.grid_sample_fast.launches = 0
-    outs = face.get_posing_outputs(image, _bench_pose(face.pose_parameters, 0))
+    outs = face.get_posing_outputs(image, bench.pose_sweep(face.pose_parameters, 1)[0])
     torch.cuda.synchronize()
     launches = (cuda_conv.fused_affine_conv3_nchw.launches, cuda_warp.grid_sample_fast.launches)
     shapes = [tuple(t.shape[:3]) for t in outs]
@@ -1723,6 +1978,7 @@ def main() -> int:
         k2 = phase_k2(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         main_path = phase_main_path(torch, workdir)
+        serving = phase_serving(torch, workdir, main_path["yaml"])
     with torch.inference_mode():
         k4 = phase_k4(torch, face, body)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
@@ -1740,6 +1996,7 @@ def main() -> int:
         teacher_params = random_teacher_07(torch.Generator().manual_seed(SEED + 8))
         image = torch.from_numpy(imagecodec.load_image_hwc(config.character_image_file_name))[None].cuda()
         poser = phase_teacher_poser(torch, workdir, teacher_params)
+        web_teacher = phase_web_teacher(torch, workdir)
         body_teacher = phase_body_teacher(torch, teacher_params, image)
         body = phase_body_training(torch, workdir, config, teacher_params)
 
@@ -1764,6 +2021,8 @@ def main() -> int:
                  "image dtype",
         "launches_training": training["launches"]["grid_sample_fast"],
         "launches_body_training": body["launches"]["grid_sample_fast"],
+        "launches_serving": serving["launches"]["grid_sample_fast"] + web_teacher["grid_sample_fast"],
+        "launches_bench_capture": serving["bench"]["launches_at_capture"]["grid_sample_fast"],
     }
     k6_entry = {
         "name": "affine_silu_conv3", "route": "cuda", "source": "tha4_tpu_torch/csrc/affine_conv3.cu",
@@ -1784,6 +2043,7 @@ def main() -> int:
         "bound_ms_f32": k6_main["f32"]["bound_ms"], "library_ms_f32": k6_main["f32"]["library_ms"],
         "launches_body_teacher_call": body_teacher["k6_launches_per_call"],
         "launches_body_training": body["launches"]["fused_affine_conv3_nchw"],
+        "launches_web_teacher": web_teacher["fused_affine_conv3_nchw"],
         "shapes": k6["shapes"],
         "timed": f"device time (20 calls back to back) at N=8, {K6_MAIN_SHAPE}, bf16; *_f32 in f32; plain: one event "
                  "pair a call; every shape in shapes (ms, library_ms: 20 calls back to back; plain_ms: one event pair a "
@@ -1808,6 +2068,8 @@ def main() -> int:
                          "cores (f32: products plus epilogue); calls: each call and dtype",
                 "bound_share": k1["bound"]["bf16"]["bound_ms"] / k1["ms"]["bf16"], "calls": k1["calls"],
                 "launches_training": training["launches"]["sine_chain_t"],
+                "launches_serving": serving["launches"]["sine_chain_t"],
+                "launches_bench_capture": serving["bench"]["launches_at_capture"]["sine_chain_t"],
             },
             k2_entry,
             {
@@ -1892,6 +2154,7 @@ def main() -> int:
                 "ms_f32": k6_main["f32"]["fold_ms"], "plain_ms_f32": k6_main["f32"]["fold_plain_ms"],
                 "bound_ms_f32": k6_main["f32"]["fold_bound_ms"],
                 "launches_per_mode_07_call": 2 * body_teacher["k6_launches_per_call"],
+                "launches_web_teacher": web_teacher["fold_groupnorm_film"],
                 "timed": f"device time, 20 calls back to back, of the fold of a ResBlock's norm1 and two FiLMs over K6's x at "
                          f"N=8, {K6_MAIN_SHAPE}, bf16; *_f32 in f32; two kernel launches a call; launches: fold calls of "
                          "the teacher poser's 4 poses in bf16 and in f32; no single PyTorch call computes it",
@@ -1912,6 +2175,7 @@ def main() -> int:
         "frame_ms": main_path["ms"], "train_step_ms": training["steps"], "body_teacher_ms": body_teacher["ms"],
         "teacher_pose_ms": poser["ms"],
         "body_train_step_ms": body["steps"], "build_s": build_s, "card": card,
+        "serving": {"bench": serving["bench"], "puppeteer": serving["puppeteer"], "seconds": serving["seconds"]},
     }
     for entry in kernels["kernels"]:
         if set(KERNEL_KEYS) - set(entry) or not entry["launches"] > 0:

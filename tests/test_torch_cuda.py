@@ -7,6 +7,8 @@ jax, which tests/conftest.py imports):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -462,3 +464,49 @@ def test_warp_kernel_at_ragged_sizes(card, dtype, n, h, w, ho, wo):
         assert torch.equal(out, ref)
     else:
         assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_captured_frames_equal_eager_frames(card, dtype):
+    """The frame bench's method (``tools.bench``): full-width student frames
+    captured in one CUDA graph and replayed equal the same frames run
+    eagerly, bit for bit (K1 and K2 are deterministic), output by output
+    and in the bench's scalar; the capture counts 4 K1 and 1 K2 launches a
+    frame, the replay none."""
+    import PIL.Image
+
+    from tha4_tpu_torch.charmodel.synthetic import synthetic_character_image
+    from tha4_tpu_torch.core import imagecodec
+    from tha4_tpu_torch.poser.modes import mode_14
+    from tha4_tpu_torch.tools import bench
+
+    gen = torch.Generator().manual_seed(14)
+    poser = mode_14.StudentPoser(siren.SirenFaceMorpher(generator=gen), siren.SirenMorpher(generator=gen),
+                                 compute_dtype=dtype, device=card)
+    image = imagecodec.load_image_hwc(PIL.Image.fromarray(synthetic_character_image(512, seed=4), mode="RGBA"))
+    image = torch.from_numpy(image)[None].to(card, dtype)
+    poses = torch.from_numpy(bench.pose_sweep(poser.pose_parameters, 3)).to(card, dtype)
+
+    def frames():
+        return [mode_14.compute_outputs(poser.face_cfg, poser.body_cfg, poser.face_chain, poser.body_chains,
+                                        image, poses[i : i + 1]) for i in range(poses.shape[0])]
+
+    with torch.no_grad():
+        eager = frames()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        before = (cuda_siren.sine_chain_t.launches, cuda_warp.grid_sample_fast.launches)
+        with torch.cuda.graph(graph):
+            captured = frames()
+        counted = (cuda_siren.sine_chain_t.launches, cuda_warp.grid_sample_fast.launches)
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert (counted[0] - before[0], counted[1] - before[1]) == (12, 3)
+    assert (cuda_siren.sine_chain_t.launches, cuda_warp.grid_sample_fast.launches) == counted
+    for e, c in zip(eager, captured):
+        for a, b in zip(e, c):
+            assert torch.equal(a, b)
+    result = bench.measure(poser, image, poses)
+    assert result["graph_scalar"] == result["eager_scalar"] and math.isfinite(result["graph_scalar"])
+    assert result["launches_at_capture"] == {"sine_chain_t": 12, "grid_sample_fast": 3}

@@ -268,3 +268,20 @@ def test_image_codec_matches_jax(tmp_path):
     jcodec.save_image_hwc(ours, str(tmp_path / "b.png"))
     np.testing.assert_array_equal(np.asarray(PIL.Image.open(tmp_path / "a.png")), np.asarray(PIL.Image.open(tmp_path / "b.png")))
     assert os.path.getsize(tmp_path / "a.png") > 0
+
+
+@pytest.mark.parametrize("name", ["to_display_rgba", "composite_greenscreen"])
+def test_display_conversions_match_jax(name):
+    """The apps' float conversions for display against the JAX package's, on
+    one seeded model-unit image whose alpha runs past [-1, 1] (the clip):
+    numpy in gives numpy out, a tensor stays a tensor."""
+    rng = np.random.default_rng(11)
+    image = rng.uniform(-1.0, 1.0, (32, 32, 4)).astype(np.float32)
+    image[..., 3] *= 1.25
+    ref = np.asarray(getattr(jcodec, name)(jnp.asarray(image)))
+    ours_np = getattr(imagecodec, name)(image)
+    ours_t = getattr(imagecodec, name)(torch.from_numpy(image))
+    assert isinstance(ours_np, np.ndarray) and torch.is_tensor(ours_t)
+    assert ref.shape == ours_np.shape == tuple(ours_t.shape) == (32, 32, 4 if name == "to_display_rgba" else 3)
+    np.testing.assert_allclose(ours_np, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ours_t.numpy(), ref, rtol=0, atol=1e-6)

@@ -1,5 +1,9 @@
 """Image codec: sRGB <-> linear, premultiplied alpha, [0,1] <-> [-1,1]
-(counterpart of ``tha4_tpu/core/imagecodec.py``, numpy path only).
+(counterpart of ``tha4_tpu/core/imagecodec.py``).
+
+The pixel functions take numpy arrays or tensors and return the same kind:
+a tensor stays on its device, as the JAX package's ``xp`` switch keeps a
+device array on the device.
 
 Model units are premultiplied-alpha, linear-light RGBA scaled to [-1, 1]
 (``image * 2 - 1``), HWC at the host boundary.
@@ -102,6 +106,45 @@ def encode_display_u8(image_hwc: torch.Tensor, scale: float = 2.0, offset: float
     a = image[..., 3:4].clamp(0.0, 1.0)
     rgb = linear_to_srgb(unpremultiply_alpha(rgb, a))
     return torch.round(torch.cat([rgb, a], dim=-1) * 255.0).to(torch.uint8)
+
+
+def save_image_u8_hwc(image_u8, file_name: str) -> None:
+    """uint8 HWC RGBA/RGB (already display-encoded; numpy or tensor) -> PNG."""
+    import PIL.Image
+
+    if torch.is_tensor(image_u8):
+        image_u8 = image_u8.cpu().numpy()
+    image_u8 = np.asarray(image_u8)
+    mode = "RGBA" if image_u8.shape[-1] == 4 else "RGB"
+    dir_name = os.path.dirname(file_name)
+    if dir_name:
+        os.makedirs(dir_name, exist_ok=True)
+    PIL.Image.fromarray(image_u8, mode=mode).save(file_name)
+
+
+def _cat(parts):
+    return torch.cat(parts, dim=-1) if torch.is_tensor(parts[0]) else np.concatenate(parts, axis=-1)
+
+
+def to_display_rgba(image_hwc, scale: float = 2.0, offset: float = -1.0):
+    """Model units -> displayable [0,1] RGBA (linear->sRGB, keep premultiplied),
+    the puppeteer's postprocess
+    (reference: src/tha4/app/character_model_ifacialmocap_puppeteer.py:325-345)."""
+    image = (image_hwc - offset) / scale
+    rgb = linear_to_srgb(image[..., 0:3])
+    a = image[..., 3:4].clip(0.0, 1.0)
+    return _cat([rgb, a])
+
+
+def composite_greenscreen(image_hwc, scale: float = 2.0, offset: float = -1.0):
+    """Model-unit premultiplied RGBA -> RGB over a green background in sRGB
+    (reference: src/tha4/shion/base/image_util.py:72-90): linear->sRGB of the
+    (premultiplied-as-straight) RGB, multiply by alpha, add (1-a) to green."""
+    image = (image_hwc - offset) / scale
+    rgb = linear_to_srgb(image[..., 0:3])
+    a = image[..., 3:4]
+    zero = (torch if torch.is_tensor(a) else np).zeros_like(a)
+    return rgb * a + _cat([zero, 1.0 - a, zero])
 
 
 def _pil_has_transparency(pil_image) -> bool:
