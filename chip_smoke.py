@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame, teacher poser and both students' training on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training and distillation to a character model on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -64,7 +64,8 @@ Phases, one or more lines each:
 9. K5 (``poly_sin`` forward and backward) at the body student's widest
    layer, (8, 512^2, 90), f32 -> bf16 (the mixed path), bf16 and f32;
 10. the body teacher: a seeded full-width random mode_07 (zero-init layers
-    brought to life by ``random_teacher_07``) at B = 1 and 8, bf16 and f32:
+    brought to life by ``random_teacher_07``) at B = 1, 4 (the body sample
+    grid's render) and 8, bf16 and f32:
     33 finite outputs of the expected shapes through exactly 5 K2, 102 K6
     and 102 fold launches a call, and every device launch of a call counted
     by ``torch.profiler``; K6 against its plain version at every size those
@@ -109,7 +110,24 @@ Phases, one or more lines each:
     pose at B = 1 is printed; ``mode_12.create_poser`` gives its 22 outputs;
     then the web poser's ``--teacher`` handler on the same files, in this
     process: /meta and /pose.png, 102 K6, 102 fold and 5 K2 launches a
-    request.
+    request;
+14. distillation to a character model through ``pipeline.run_config``
+    (the ``tha4-torch-distill`` command's callee), at full width, bf16
+    teacher and selective-f32 body student, both sample cadences at 10 000,
+    16 steps a student at batch 8 and a checkpoint every 8, cuDNN
+    deterministic: the face target (16 face steps and its sample grid at 0),
+    then ``all`` (the face tasks up to date, 16 body steps, its grid at 0,
+    both exports, the character PNG and yaml), each with its exact launch
+    counts; a rerun that launches nothing and leaves every file's mtime;
+    the body's last checkpoint and ``body_morpher.pt`` deleted and rerun,
+    once with the snapshot at the end kept (no step) and once without it
+    (resumed from checkpoint 1, 8 steps), each ``.pt`` equal to the first
+    bit for bit; the grids' sizes and the TensorBoard events against the
+    JSONL rows; the written model posed through
+    ``CharacterModel.load(...).get_poser(...)`` in f32 and bf16 (4 K1 and
+    1 K2 a frame), f32 equal bit for bit to a poser from the last
+    checkpoints' ``.npz`` files, bf16 >= 28 dB; ms/step through the DAG,
+    the sample grids' and renders' ms and an export's.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K2, K3's forward and grid backward, K4-K6, the fold, and K7 and the TPU
@@ -268,6 +286,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                "library_ms")
 TRAIN_STEPS = 32
 TRAIN_BATCH = 8
+DISTILL_STEPS = 16  # phase_distill: steps a student, a checkpoint every half
 OUTPUT_NAMES = ["blended", "alpha", "color_change", "warped", "grid_change", "face"]
 
 
@@ -406,25 +425,45 @@ def phase_build() -> float:
     return seconds
 
 
-def _level_inputs(torch, gen, size, prev_channels, pose_dim, dtype):
-    """Seeded level inputs: prev in [-1, 1] like sine outputs, the identity
-    grid, a pose in [0, 1]."""
+def _level_inputs(torch, gen, size, prev_channels, pose_dim, dtype, n: int = 1):
+    """Seeded level inputs for a batch of n: prev in [-1, 1] like sine
+    outputs, the identity grid, poses in [0, 1]."""
     from tha4_tpu_torch.models.siren import pos_t
 
     hw = size * size
     prev = None
     if prev_channels:
-        prev = (torch.rand((1, prev_channels, hw), generator=gen) * 2.0 - 1.0).to("cuda", dtype)
-    pose = torch.rand((1, pose_dim), generator=gen).cuda()
+        prev = (torch.rand((n, prev_channels, hw), generator=gen) * 2.0 - 1.0).to("cuda", dtype)
+    pose = torch.rand((n, pose_dim), generator=gen).cuda()
     return prev, pos_t(size, dtype, "cuda"), pose
 
 
 def phase_k1(torch, face, body) -> dict:
+    """K1 against its plain version at the frame's four calls (N = 1, timed)
+    and at the batches that training and the sample grids give it: the face
+    at N = 8 (the training step; its grid) and the body levels at N = 4 (the
+    body grid's student), in both dtypes."""
+    from tha4_tpu_torch.distiller import pipeline
     from tha4_tpu_torch.ops import cuda_siren
 
     gen = torch.Generator().manual_seed(SEED + 1)
     results = {"f32_err": 0.0, "bf16_err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}, "calls": {}}
     face_cfg, body_cfg = face.cfg, body.cfg
+
+    def check(name, tag, chain, prev, pos, pose) -> tuple:
+        out = cuda_siren.sine_chain_t(prev, pos, pose, chain)
+        ref = cuda_siren.chain_t_plain(prev, pos, pose, chain)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != pos.dtype:
+            raise AssertionError(f"K1 {name} {tag}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype}")
+        err = float((out.float() - ref.float()).abs().max())
+        scale = max(1.0, float(ref.float().abs().max()))
+        bar = K1_F32_ATOL if pos.dtype == torch.float32 else K1_BF16_STEPS * 2.0**-8 * scale
+        if not err <= bar:
+            raise AssertionError(f"K1 {name} {tag}: max_abs_err {err} over the bar {bar}")
+        results[f"{tag}_err"] = max(results[f"{tag}_err"], err)
+        return out, err, bar
+
     for dtype, tag in [(torch.float32, "f32"), (torch.bfloat16, "bf16")]:
         chains = [face.pack(dtype, "cuda")] + body.pack(dtype, "cuda")
         calls = [
@@ -437,17 +476,10 @@ def phase_k1(torch, face, body) -> dict:
         nbytes = macs = sines = 0
         for name, chain, size, cp, pose_dim in calls:
             prev, pos, pose = _level_inputs(torch, gen, size, cp, pose_dim, dtype)
-            out = cuda_siren.sine_chain_t(prev, pos, pose, chain)
+            out, err, bar = check(name, tag, chain, prev, pos, pose)
             call_bytes = _nbytes(prev, pos, pose, chain.w, chain.b, out)
             call_macs, call_sines = _chain_macs(chain, 1, size * size), _chain_sines(chain, 1, size * size)
             nbytes, macs, sines = nbytes + call_bytes, macs + call_macs, sines + call_sines
-            ref = cuda_siren.chain_t_plain(prev, pos, pose, chain)
-            torch.cuda.synchronize()
-            if out.shape != ref.shape or out.dtype != dtype:
-                raise AssertionError(f"K1 {name} {tag}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype}")
-            err = float((out.float() - ref.float()).abs().max())
-            scale = max(1.0, float(ref.float().abs().max()))
-            bar = K1_F32_ATOL if dtype == torch.float32 else K1_BF16_STEPS * 2.0**-8 * scale
             k_ms = _time_ms(lambda: cuda_siren.sine_chain_t(prev, pos, pose, chain))
             p_ms = _time_ms(lambda: cuda_siren.chain_t_plain(prev, pos, pose, chain))
             k_total += k_ms
@@ -457,9 +489,9 @@ def phase_k1(torch, face, body) -> dict:
             shape = " -> ".join(str(int(c)) for c in [chain.specs[0, 0]] + list(chain.specs[:, 1]))
             print(f"K1 {name:4s} {tag:4s} {size}^2 {shape}: max_abs_err {err:.3e} (bar {bar:.1e}), "
                   f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; {_bound_text(bound)}, share {bound['bound_ms'] / k_ms:.3f}")
-            if not err <= bar:
-                raise AssertionError(f"K1 {name} {tag}: max_abs_err {err} over the bar {bar}")
-            results[f"{tag}_err"] = max(results[f"{tag}_err"], err)
+        for (name, chain, size, cp, pose_dim), n in zip(calls, (TRAIN_BATCH,) + (pipeline.BODY_SAMPLES,) * 3):
+            _, err, bar = check(f"{name} N={n}", tag, chain, *_level_inputs(torch, gen, size, cp, pose_dim, dtype, n))
+            print(f"K1 {name:4s} {tag:4s} N={n} {size}^2: max_abs_err {err:.3e} (bar {bar:.1e})")
         results["ms"][tag], results["plain_ms"][tag] = k_total, p_total
         bound = results["bound"][tag] = _chain_bound(nbytes, macs, sines * SIN_OPS, tag)
         print(f"K1 per frame {tag}: kernel {k_total:.4f} ms, plain {p_total:.4f} ms; {_bound_text(bound)}, "
@@ -1307,7 +1339,8 @@ def _conv_macs(torch, teacher, run) -> tuple:
 
 
 def phase_body_teacher(torch, teacher_params, image) -> dict:
-    """The full-width mode_07 at B = 1 and 8, bf16 and f32."""
+    """The full-width mode_07 at B = 1, 4 and 8, bf16 and f32."""
+    from tha4_tpu_torch.distiller.pipeline import BODY_SAMPLES
     from tha4_tpu_torch.distiller.pose_dataset import sample_poses
     from tha4_tpu_torch.models import body_morpher
     from tha4_tpu_torch.ops import cuda_conv, cuda_warp
@@ -1322,7 +1355,7 @@ def phase_body_teacher(torch, teacher_params, image) -> dict:
     k6_sizes = {}  # every size K6 took in these calls -> calls a teacher call
     for tag, dtype in [("bf16", torch.bfloat16), ("f32", torch.float32)]:
         teacher = mode_07.Teacher.from_params(teacher_params).freeze(dtype, "cuda")
-        for n in (1, TRAIN_BATCH):
+        for n in (1, BODY_SAMPLES, TRAIN_BATCH):  # frames, the body sample grid's render, training
             poses = sample_poses(torch.Generator().manual_seed(SEED + 20 + n), n).cuda()
             images = image.to(dtype).expand(n, *image.shape[1:])
             cuda_warp.grid_sample_fast.launches = 0
@@ -1664,6 +1697,263 @@ def phase_body_training(torch, workdir: str, config, teacher_params) -> dict:
     return {"launches": launches, "steps": steps, **grads, "resume_diff": max(diffs), "wall_s": wall}
 
 
+def _file_state(root: str) -> dict:
+    """Every file under ``root`` with its mtime in ns."""
+    out = {}
+    for directory, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(directory, f)
+            out[path] = os.stat(path).st_mtime_ns
+    return out
+
+
+def phase_distill(torch, workdir: str, teacher_params) -> dict:
+    """Distillation to a character model through ``pipeline.run_config``,
+    the ``tha4-torch-distill`` command's callee, at full width (the random
+    mode_07 of phase 10, mode_12 taken from it; the shipped students), bf16
+    teacher and selective-f32 body student, both sample cadences at the
+    config's default 10 000, 16 steps a student at batch 8 and a checkpoint
+    every 8 steps.  cuDNN runs in its deterministic mode, so that the
+    resumed export can be held bit for bit."""
+    import PIL.Image
+
+    from tha4_tpu_torch.charmodel import CharacterModel
+    from tha4_tpu_torch.charmodel.synthetic import write_distiller_inputs
+    from tha4_tpu_torch.distiller import pipeline, recipes, sample_output
+    from tha4_tpu_torch.distiller.config import DistillerConfig
+    from tha4_tpu_torch.ops import cuda_conv, cuda_poly_sin, cuda_siren, cuda_warp
+    from tha4_tpu_torch.poser.modes import mode_14
+    from tha4_tpu_torch.tools import bench
+    from tha4_tpu_torch.training import checkpoint as ckpt
+    from tha4_tpu_torch.training import tensorboard
+    from tha4_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, "distill_dag"), seed=SEED + 30,
+                                                         batch_size=TRAIN_BATCH, sample_cadence=10_000))
+    total = DISTILL_STEPS * TRAIN_BATCH
+    kwargs = dict(teacher_params_07=teacher_params, compute_dtype=torch.bfloat16, device="cuda", face_total_examples=total,
+                  body_total_examples=total, examples_per_checkpoint=total // 2, examples_per_snapshot=total // 4)
+    counters = [cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd, cuda_warp.grid_sample_fast,
+                cuda_warp.grid_sample_train_forward, cuda_warp.grid_sample_grid_backward, cuda_poly_sin.poly_sin_forward,
+                cuda_poly_sin.poly_sin_backward, cuda_conv.fused_affine_conv3_nchw, cuda_conv.fold_groupnorm_film]
+    names = [c.__name__ for c in counters]
+
+    # Host-clock records of the DAG's work, through wrappers on the methods
+    # run_config's own DistillationJobs calls: each training task (its
+    # steps counted from the examples it resumed at and ended at), each
+    # sample grid and each export.  A student's first task logs a row and
+    # a TensorBoard event every step, so that the events can be held
+    # against the JSONL rows; every later task, whose time is the reading,
+    # logs at the trainer's own cadence.
+    tasks, samples, exports, saves, starts, jobs_seen = [], [], [], [], [], []
+    train, save, load, write_face, write_body, export = (
+        Trainer.train, Trainer._save, Trainer._load_or_init, pipeline.DistillationJobs.write_face_samples,
+        pipeline.DistillationJobs.write_body_samples, pipeline.DistillationJobs._export_student)
+
+    def rows(prefix):
+        path = os.path.join(prefix, "log", "scalars.jsonl")
+        return sum(1 for _ in open(path)) if os.path.exists(path) else 0
+
+    def timed_train(self, target_examples=None):
+        first = not any(t["prefix"] == self.cfg.prefix for t in tasks)
+        self.cfg.log_every_seconds = 0.0 if first else TrainerConfig.log_every_seconds
+        n_samples, n_saves = len(samples), len(saves)
+        t0 = time.perf_counter()
+        out = train(self, target_examples)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0 - sum(s for _, _, s in samples[n_samples:])
+        tasks.append({"prefix": self.cfg.prefix, "steps": (out["examples_seen"] - starts[-1]) // self.cfg.total_batch_size,
+                      "s": seconds, "saves": len(saves) - n_saves, "save_s": sum(saves[n_saves:]),
+                      "log_every_seconds": self.cfg.log_every_seconds})
+        return out
+
+    def recorded_load(self, target_examples):
+        state = load(self, target_examples)
+        starts.append(state[2])
+        return state
+
+    def timed_save(self, *args):
+        t0 = time.perf_counter()
+        save(self, *args)
+        saves.append(time.perf_counter() - t0)
+
+    def timed_write(write, kind):
+        def run(self, student, examples_seen):
+            jobs_seen.append(self)
+            t0 = time.perf_counter()
+            write(self, student, examples_seen)
+            samples.append((kind, examples_seen, time.perf_counter() - t0))
+        return run
+
+    def timed_export(checkpoint_file, module, dest):
+        t0 = time.perf_counter()
+        export(checkpoint_file, module, dest)
+        exports.append((dest, time.perf_counter() - t0))
+
+    def drive(target: str) -> dict:
+        for c in counters:
+            c.launches = 0
+        pipeline.run_config(config, target=target, **kwargs)
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    Trainer.train, Trainer._save, Trainer._load_or_init = timed_train, timed_save, recorded_load
+    pipeline.DistillationJobs.write_face_samples = timed_write(write_face, "face")
+    pipeline.DistillationJobs.write_body_samples = timed_write(write_body, "body")
+    pipeline.DistillationJobs._export_student = staticmethod(timed_export)
+    try:
+        runs = {"face": drive("face")}
+        pngs = {kind: sample_output.sample_output_file_name(getattr(config, f"{kind}_morpher_prefix")(), 0) for kind in ("face", "body")}
+        if os.path.exists(pngs["body"]) or os.path.exists(config.character_model_yaml_file_name()):
+            raise AssertionError("distill: the face target ran body or character-model tasks")
+        runs["all"] = drive("all")
+        outputs = _file_state(config.prefix)
+        runs["rerun"] = drive("all")
+        if _file_state(config.prefix) != outputs:
+            raise AssertionError("distill: the rerun of an up to date DAG wrote files")
+        body_prefix, body_pt = config.body_morpher_prefix(), config.character_model_body_morpher_file_name()
+        with open(body_pt, "rb") as f:
+            first_pt = f.read()
+        resumed = {}
+        for case, drop in (("snapshot", []), ("checkpoint_1", [ckpt.snapshot_dir(body_prefix)])):
+            for path in [ckpt.checkpoint_dir(body_prefix, 2), *drop]:
+                shutil.rmtree(path)
+            os.remove(body_pt)
+            runs[f"resume_{case}"] = drive("all")
+            with open(body_pt, "rb") as f:
+                resumed[case] = f.read() == first_pt
+    finally:
+        Trainer.train, Trainer._save, Trainer._load_or_init = train, save, load
+        pipeline.DistillationJobs.write_face_samples = write_face
+        pipeline.DistillationJobs.write_body_samples = write_body
+        pipeline.DistillationJobs._export_student = export
+        torch.backends.cudnn.deterministic = deterministic
+
+    face_step = {"sine_chain_t": 1, "sine_chain_t_bwd": 1, "grid_sample_fast": 2}
+    body_step = {"grid_sample_fast": 5, "grid_sample_train_forward": 1, "grid_sample_grid_backward": 1,
+                 "poly_sin_forward": 9, "poly_sin_backward": 9, "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL,
+                 "fold_groupnorm_film": K6_PER_TEACHER_CALL}
+    face_render = {"sine_chain_t": 1, "grid_sample_fast": 2}  # the student's f32 chain and mode_12 at B = 8
+    body_render = {"sine_chain_t": 3, "grid_sample_fast": 5 + 1, "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL,
+                   "fold_groupnorm_film": K6_PER_TEACHER_CALL}  # mode_07 at B = 4 and the student's three levels and warp
+
+    def expect(*terms) -> dict:
+        out = dict.fromkeys(names, 0)
+        for counts, times in terms:
+            for k, v in counts.items():
+                out[k] += v * times
+        return out
+
+    expected = {"face": expect((face_step, DISTILL_STEPS), (face_render, 1)),
+                "all": expect((body_step, DISTILL_STEPS), (body_render, 1)), "rerun": expect(),
+                "resume_snapshot": expect(), "resume_checkpoint_1": expect((body_step, DISTILL_STEPS // 2))}
+    for run, launches in runs.items():
+        print(f"distill {run}: launches {launches}")
+        if launches != expected[run]:
+            raise AssertionError(f"distill {run}: expected {expected[run]} launches, got {launches}")
+    print(f"distill: the rerun of the up to date DAG launched nothing and left {len(outputs)} files' mtimes as they were; "
+          f"the body's body_morpher.pt rewritten from the snapshot at {total} (no step) and retrained from checkpoint 1 "
+          f"({DISTILL_STEPS // 2} steps) equals the first bit for bit: {resumed}")
+    if not all(resumed.values()):
+        raise AssertionError(f"distill: a resumed body_morpher.pt differs from the first: {resumed}")
+
+    for kind, shape in (("face", (pipeline.FACE_SAMPLES * pipeline.FACE_SAMPLE_CELL, 2 * pipeline.FACE_SAMPLE_CELL)),
+                        ("body", (pipeline.BODY_SAMPLES * pipeline.BODY_SAMPLE_CELL, 4 * pipeline.BODY_SAMPLE_CELL))):
+        pixels = np.asarray(PIL.Image.open(pngs[kind]))
+        if pixels.shape != shape + (4,):
+            raise AssertionError(f"distill: {kind} sample grid {pixels.shape}, expected {shape + (4,)}")
+        prefix = getattr(config, f"{kind}_morpher_prefix")()
+        log = os.path.join(prefix, "log")
+        events = [e for f in sorted(os.listdir(log)) if f.startswith("events.out.tfevents.")
+                  for e in tensorboard.read_events(os.path.join(log, f)) if e["scalars"]]
+        if len(events) != rows(prefix) or not events or not all(math.isfinite(v) for e in events for v in e["scalars"].values()):
+            raise AssertionError(f"distill: {kind} TensorBoard events {len(events)}, JSONL rows {rows(prefix)}")
+        print(f"distill: {kind} sample grid at 0 decodes to {pixels.shape[0]}x{pixels.shape[1]}; {len(events)} TensorBoard "
+              f"scalar events read back through read_events, as many as the JSONL's rows")
+
+    # Posing the character model the DAG wrote, against a poser from the last checkpoints' .npz files.
+    model = CharacterModel.load(config.character_model_yaml_file_name())
+    image = model.get_character_image()
+    posers = {"f32": model.get_poser(torch.float32, "cuda"), "bf16": model.get_poser(torch.bfloat16, "cuda")}
+    poses = list(bench.pose_sweep(posers["f32"].pose_parameters, POSES))
+    for c in counters:
+        c.launches = 0
+    frames = {tag: [poser.get_posing_outputs(image, pose) for pose in poses] for tag, poser in posers.items()}
+    torch.cuda.synchronize()
+    pose_launches = {c.__name__: c.launches for c in counters}
+    if pose_launches != expect(({"sine_chain_t": 4, "grid_sample_fast": 1}, 2 * POSES)):
+        raise AssertionError(f"distill: posing the character model launched {pose_launches}")
+    npz = {key: os.path.join(ckpt.checkpoint_dir(prefix, 2), "module_module.npz") for key, prefix in
+           ((mode_14.KEY_FACE_MORPHER, config.face_morpher_prefix()), (mode_14.KEY_BODY_MORPHER, body_prefix))}
+    from_npz = mode_14.create_poser(module_file_names=npz, compute_dtype=torch.float32, device="cuda")
+    equal = all(torch.equal(a, b) for pose, outs in zip(poses, frames["f32"])
+                for a, b in zip(outs, from_npz.get_posing_outputs(image, pose)))
+    finite = all(bool(torch.isfinite(o).all()) for outs in frames.values() for f in outs for o in f)
+    psnr = min(_psnr(b[0], f[0]) for b, f in zip(frames["bf16"], frames["f32"]))
+    print(f"distill: the exported character model poses {POSES} poses in f32 and bf16 through CharacterModel.load(...)"
+          f".get_poser(...): launches {pose_launches} (4 K1 and 1 K2 a frame); f32 frames equal the .npz poser's bit for "
+          f"bit: {equal}; bf16 vs f32 blended PSNR min {psnr:.2f} dB (floor {BF16_MIN_PSNR:.0f}); finite {finite}")
+    if not (equal and finite and psnr >= BF16_MIN_PSNR):
+        raise AssertionError("distill: the exported model's frames fail their checks")
+
+    # Times.  ms/step: each training task on the host clock, its sample
+    # grid's time taken out, snapshot and checkpoint writes left in; the
+    # second task of each student is past its first-call costs and logs at
+    # the trainer's own cadence (the first logs every step, see above).
+    ms_step = {}
+    for kind in ("face", "body"):
+        prefix = getattr(config, f"{kind}_morpher_prefix")()
+        first, second = [t for t in tasks if t["prefix"] == prefix][:2]
+        ms_step[kind] = {"task_1_logging_every_step": 1000.0 * first["s"] / first["steps"],
+                         "task_2": 1000.0 * second["s"] / second["steps"], "task_2_saves": second["saves"],
+                         "task_2_without_saves": 1000.0 * (second["s"] - second["save_s"]) / second["steps"],
+                         "task_2_log_every_seconds": second["log_every_seconds"]}
+    # One render (to host arrays) and one grid (render and PNG) after the
+    # run, medians of 3; the grids go to an examples_seen no run reaches.
+    jobs = jobs_seen[-1]
+    renders, grids = {}, {}
+    for kind, key, seed, n in (("face", mode_14.KEY_FACE_MORPHER, config.face_morpher_random_seed_1, pipeline.FACE_SAMPLES),
+                               ("body", mode_14.KEY_BODY_MORPHER, config.body_morpher_random_seed_1, pipeline.BODY_SAMPLES)):
+        render, student = getattr(jobs, f"render_{kind}_samples"), mode_14._load_student(npz[key], kind)
+        write, poses_n = getattr(jobs, f"write_{kind}_samples"), jobs.sample_poses(seed, n)
+        for out, fn in ((renders, lambda: render(student, poses_n)), (grids, lambda: write(student, 9_999_999_992))):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                times.append(1000.0 * (time.perf_counter() - t0))
+            out[kind] = statistics.median(times)
+    write_ms = {kind: 1000.0 * s for kind, _, s in samples}
+    export_ms = statistics.median(1000.0 * s for _, s in exports)
+    # The production cadence's grids a student: one at 0, one every 10 000
+    # examples, and one more after each checkpoint task but the first (a
+    # task resumes at its boundary, a multiple of the cadence, and samples
+    # after its first step, as the JAX trainer does).
+    grid_counts = {kind: 1 + total_ex // 10_000 + total_ex // recipes.EXAMPLES_PER_CHECKPOINT - 1 for kind, total_ex in
+                   (("face", recipes.FACE_MORPHER_TOTAL_EXAMPLES), ("body", recipes.BODY_MORPHER_TOTAL_EXAMPLES))}
+    cadence_s = sum(write_ms[k] + (grid_counts[k] - 1) * grids[k] for k in grid_counts) / 1000.0
+    print(f"distill through the DAG (host clock, cuDNN deterministic, the second task logging every "
+          f"{ms_step['face']['task_2_log_every_seconds']:.0f} s): face {ms_step['face']['task_2']:.2f} ms/step (without "
+          f"the task's {ms_step['face']['task_2_saves']} snapshot and checkpoint writes "
+          f"{ms_step['face']['task_2_without_saves']:.2f}; the first task, logging every step and with first-call costs, "
+          f"{ms_step['face']['task_1_logging_every_step']:.2f}), body {ms_step['body']['task_2']:.2f} ms/step (without its "
+          f"{ms_step['body']['task_2_saves']} state writes {ms_step['body']['task_2_without_saves']:.2f}; first task "
+          f"{ms_step['body']['task_1_logging_every_step']:.2f}); sample grid at 0 (render and PNG, the run's first render, "
+          f"freezing the f32 teacher) face {write_ms['face']:.1f} ms, body {write_ms['body']:.1f} ms; after the run "
+          f"(medians of 3) a render to host arrays face {renders['face']:.2f} ms, body {renders['body']:.2f} ms, a grid "
+          f"face {grids['face']:.1f} ms, body {grids['body']:.1f} ms; export {export_ms:.2f} ms a student "
+          f"({len(exports)} exports); the production cadence's {grid_counts['face']} face and {grid_counts['body']} body "
+          f"grids (the first at its first-render time): {cadence_s:.1f} s a character")
+    totals = dict.fromkeys(names, 0)
+    for launches in list(runs.values()) + [pose_launches]:
+        for k, v in launches.items():
+            totals[k] += v
+    return {"launches": totals, "runs": runs, "ms_step": ms_step, "sample_write_ms": write_ms, "render_ms": renders,
+            "grid_ms": grids, "grid_counts": grid_counts, "export_ms": export_ms, "cadence_s": cadence_s, "pose_launches": pose_launches, "bf16_psnr": psnr}
+
+
 def _k6_inputs(torch, gen, n: int, h: int, w: int, cin: int, cout: int, cs: int, mode: int) -> tuple:
     """Seeded K6 inputs on the card, f32 and NHWC: x, scale, shift, the HWIO
     weight, bias, skip (mode 1: identity, 2: 1x1 from cs channels) and the
@@ -1736,7 +2026,7 @@ def _k6_at_path_sizes(torch, sizes: dict) -> dict:
         skip = ("", " +identity", f" +1x1({cs})")[mode]
         print(f"K6 at a path size, N={n} {h}x{w} {cin}->{cout}{skip}, {sizes[size]} a call: error over max |plain| "
               + ", ".join(line))
-    print(f"K6 at the {len(sizes)} sizes of the teacher's calls at B = 1 and {TRAIN_BATCH}: within the bars "
+    print(f"K6 at the {len(sizes)} sizes of the teacher's calls at B = 1, 4 and {TRAIN_BATCH}: within the bars "
           f"({K6_F32_REL:.0e} f32, {K6_BF16_REL:.0e} bf16; read {results['f32_rel']:.2e}, {results['bf16_rel']:.2e}); "
           f"split grids at {results['split_sizes']} sizes, calls a teacher call {results['split_calls']}")
     if not (results["split_sizes"]["f32"] and results["split_sizes"]["bf16"]):
@@ -1999,6 +2289,7 @@ def main() -> int:
         web_teacher = phase_web_teacher(torch, workdir)
         body_teacher = phase_body_teacher(torch, teacher_params, image)
         body = phase_body_training(torch, workdir, config, teacher_params)
+        distill = phase_distill(torch, workdir, teacher_params)
 
     k5_mixed = k5["f32->bf16"]
     k6_main = k6["shapes"][K6_MAIN_SHAPE]
@@ -2021,6 +2312,7 @@ def main() -> int:
                  "image dtype",
         "launches_training": training["launches"]["grid_sample_fast"],
         "launches_body_training": body["launches"]["grid_sample_fast"],
+        "launches_distill": distill["launches"]["grid_sample_fast"],
         "launches_serving": serving["launches"]["grid_sample_fast"] + web_teacher["grid_sample_fast"],
         "launches_bench_capture": serving["bench"]["launches_at_capture"]["grid_sample_fast"],
     }
@@ -2043,13 +2335,14 @@ def main() -> int:
         "bound_ms_f32": k6_main["f32"]["bound_ms"], "library_ms_f32": k6_main["f32"]["library_ms"],
         "launches_body_teacher_call": body_teacher["k6_launches_per_call"],
         "launches_body_training": body["launches"]["fused_affine_conv3_nchw"],
+        "launches_distill": distill["launches"]["fused_affine_conv3_nchw"],
         "launches_web_teacher": web_teacher["fused_affine_conv3_nchw"],
         "shapes": k6["shapes"],
         "timed": f"device time (20 calls back to back) at N=8, {K6_MAIN_SHAPE}, bf16; *_f32 in f32; plain: one event "
                  "pair a call; every shape in shapes (ms, library_ms: 20 calls back to back; plain_ms: one event pair a "
                  "call; with_fold_ms: K6 after its fold, library_with_norm_ms: F.group_norm then F.conv2d, both "
                  "back to back); bound_share: bound_ms / ms; errors also "
-                 "over every size of the teacher's calls at B = 1 and 8 (path_*: sizes checked, those on the split "
+                 "over every size of the teacher's calls at B = 1, 4 and 8 (path_*: sizes checked, those on the split "
                  "grid, their calls a teacher call); library: F.conv2d alone "
                  "(channels last, cuDNN); launches: the teacher poser's 4 poses in bf16 and in f32",
     }
@@ -2068,6 +2361,7 @@ def main() -> int:
                          "cores (f32: products plus epilogue); calls: each call and dtype",
                 "bound_share": k1["bound"]["bf16"]["bound_ms"] / k1["ms"]["bf16"], "calls": k1["calls"],
                 "launches_training": training["launches"]["sine_chain_t"],
+                "launches_distill": distill["launches"]["sine_chain_t"],
                 "launches_serving": serving["launches"]["sine_chain_t"],
                 "launches_bench_capture": serving["bench"]["launches_at_capture"]["sine_chain_t"],
             },
@@ -2076,6 +2370,7 @@ def main() -> int:
                 "name": "sine_chain_t_bwd", "route": "cuda", "source": "tha4_tpu_torch/csrc/sine_chain_bwd.cu",
                 "replaces": "tha4_tpu/ops/pallas_siren.py:433",
                 "launches": training["launches"]["sine_chain_t_bwd"],
+                "launches_distill": distill["launches"]["sine_chain_t_bwd"],
                 "max_abs_err": k4["f32_abs_err"], "ms": k4["ms"]["bf16"], "plain_ms": k4["plain_ms"]["bf16"],
                 **k4["bound"]["bf16"], "library_ms": None,
                 "max_scaled_err": k4["f32_err"], "max_scaled_err_bf16": k4["bf16_err"],
@@ -2089,6 +2384,7 @@ def main() -> int:
                 "name": "grid_sample_train_forward", "route": "cuda", "source": "tha4_tpu_torch/csrc/warp.cu",
                 "replaces": "tha4_tpu/ops/pallas_warp.py:239",
                 "launches": body["launches"]["grid_sample_train_forward"],
+                "launches_distill": distill["launches"]["grid_sample_train_forward"],
                 "max_abs_err": k3["f32_err"], "ms": k3["fwd_ms"]["bf16"], "plain_ms": k3["plain_fwd_ms"]["bf16"],
                 **k3["bound_fwd"]["bf16"], "library_ms": k3["library_fwd_ms"]["bf16"],
                 "bound_share": k3["bound_fwd"]["bf16"]["bound_ms"] / k3["fwd_ms"]["bf16"],
@@ -2103,6 +2399,7 @@ def main() -> int:
                 "name": "grid_sample_grid_backward", "route": "cuda", "source": "tha4_tpu_torch/csrc/warp.cu",
                 "replaces": "tha4_tpu/ops/pallas_warp.py:336",
                 "launches": body["launches"]["grid_sample_grid_backward"],
+                "launches_distill": distill["launches"]["grid_sample_grid_backward"],
                 "max_abs_err": k3["dgrid_abs_err"], "max_scaled_err": k3["dgrid_err"],
                 "ms": k3["bwd_ms"]["bf16"], "plain_ms": k3["plain_bwd_ms"]["bf16"],
                 **k3["bound_bwd"]["bf16"], "library_ms": k3["library_bwd_ms"]["bf16"],
@@ -2128,6 +2425,7 @@ def main() -> int:
                 "name": "poly_sin_forward", "route": "cuda", "source": "tha4_tpu_torch/csrc/poly_sin.cu",
                 "replaces": "tha4_tpu/ops/pallas_siren.py:84",
                 "launches": body["launches"]["poly_sin_forward"],
+                "launches_distill": distill["launches"]["poly_sin_forward"],
                 "max_abs_err": k5_mixed["errs"][0], "ms": k5_mixed["fwd"], "plain_ms": k5_mixed["plain_fwd"],
                 **k5_mixed["bound"]["fwd"], "library_ms": k5_mixed["torch_sin"],
                 "ms_f32": k5["f32"]["fwd"], "plain_ms_f32": k5["f32"]["plain_fwd"], "ms_bf16": k5["bf16"]["fwd"],
@@ -2138,6 +2436,7 @@ def main() -> int:
                 "name": "poly_sin_backward", "route": "cuda", "source": "tha4_tpu_torch/csrc/poly_sin.cu",
                 "replaces": "tha4_tpu/ops/pallas_siren.py:110",
                 "launches": body["launches"]["poly_sin_backward"],
+                "launches_distill": distill["launches"]["poly_sin_backward"],
                 "max_abs_err": k5_mixed["errs"][1], "ms": k5_mixed["bwd"], "plain_ms": k5_mixed["plain_bwd"],
                 **k5_mixed["bound"]["bwd"], "library_ms": None,
                 "ms_f32": k5["f32"]["bwd"], "plain_ms_f32": k5["f32"]["plain_bwd"], "ms_bf16": k5["bf16"]["bwd"],
@@ -2154,6 +2453,7 @@ def main() -> int:
                 "ms_f32": k6_main["f32"]["fold_ms"], "plain_ms_f32": k6_main["f32"]["fold_plain_ms"],
                 "bound_ms_f32": k6_main["f32"]["fold_bound_ms"],
                 "launches_per_mode_07_call": 2 * body_teacher["k6_launches_per_call"],
+                "launches_distill": distill["launches"]["fold_groupnorm_film"],
                 "launches_web_teacher": web_teacher["fold_groupnorm_film"],
                 "timed": f"device time, 20 calls back to back, of the fold of a ResBlock's norm1 and two FiLMs over K6's x at "
                          f"N=8, {K6_MAIN_SHAPE}, bf16; *_f32 in f32; two kernel launches a call; launches: fold calls of "
@@ -2175,6 +2475,8 @@ def main() -> int:
         "frame_ms": main_path["ms"], "train_step_ms": training["steps"], "body_teacher_ms": body_teacher["ms"],
         "teacher_pose_ms": poser["ms"],
         "body_train_step_ms": body["steps"], "build_s": build_s, "card": card,
+        "distill": {k: distill[k] for k in ("ms_step", "sample_write_ms", "render_ms", "grid_ms", "grid_counts", "export_ms",
+                                             "cadence_s", "bf16_psnr")},
         "serving": {"bench": serving["bench"], "puppeteer": serving["puppeteer"], "seconds": serving["seconds"]},
     }
     for entry in kernels["kernels"]:

@@ -278,9 +278,11 @@ def test_body_pipeline_takes_mode_12_from_mode_07_and_refuses_samples(inputs, tm
     assert all(jobs.teacher_params_12()[k] is jobs.teacher_params_07()[k] for k in mode_07.NETWORK_KEYS[:3])
     assert set(jobs.teacher_params_12()) == set(mode_07.NETWORK_KEYS[:3])
     assert jobs.config.body_morpher_prefix() == jobs.config.prefix + "/body_morpher"
+    assert jobs.make_body_trainer().sample_output_fn is None  # the inputs' cadence is null
+    # Sample outputs are ported: a cadence gives the trainer its sample writer.
     jobs.config = dataclasses.replace(jobs.config, body_morpher_num_training_examples_per_sample_output=10_000)
-    with pytest.raises(NotImplementedError, match="sample_output.py"):
-        jobs.make_body_trainer()
+    trainer = jobs.make_body_trainer()
+    assert trainer.cfg.examples_per_sample_output == 10_000 and trainer.sample_output_fn == jobs.write_body_samples
 
 
 def test_constants_first_made_under_inference_mode_still_train(rng):

@@ -8,6 +8,7 @@ jax, which tests/conftest.py imports):
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -510,3 +511,47 @@ def test_graph_captured_frames_equal_eager_frames(card, dtype):
     result = bench.measure(poser, image, poses)
     assert result["graph_scalar"] == result["eager_scalar"] and math.isfinite(result["graph_scalar"])
     assert result["launches_at_capture"] == {"sine_chain_t": 12, "grid_sample_fast": 3}
+
+
+@pytest.mark.parametrize("student", ["face", "body"])
+def test_a_step_after_a_sample_render_equals_one_without(card, tmp_path, student):
+    """The distiller's trainer renders its sample grid at 0, before the first
+    step, and the render is the first to make the cached grids and resize
+    matrices: one step after it (full-width random teachers and students,
+    bf16, batch 2) equals the same step with sample outputs off, bit for
+    bit, with cuDNN in its deterministic mode."""
+    import dataclasses
+
+    from tha4_tpu_torch.charmodel.synthetic import random_teacher_07, write_distiller_inputs
+    from tha4_tpu_torch.distiller import sample_output
+    from tha4_tpu_torch.distiller.config import DistillerConfig
+    from tha4_tpu_torch.distiller.pipeline import DistillationJobs
+    from tha4_tpu_torch.ops import resize, warp
+
+    config = DistillerConfig.load(write_distiller_inputs(str(tmp_path / "inputs"), seed=5, batch_size=2, sample_cadence=10_000))
+    params = random_teacher_07(torch.Generator().manual_seed(55))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = []
+        for render in (True, False):
+            warp._identity_grid.cache_clear()
+            resize._bilinear_matrix.cache_clear()
+            prefix = str(tmp_path / f"render_{render}")
+            os.makedirs(prefix)
+            jobs = DistillationJobs(dataclasses.replace(config, prefix=prefix), teacher_params_07=params, device=card,
+                                    face_total_examples=2, body_total_examples=2, examples_per_checkpoint=2,
+                                    examples_per_snapshot=2)
+            trainer = jobs.make_face_trainer() if student == "face" else jobs.make_body_trainer()
+            if not render:
+                trainer.sample_output_fn = None
+            result = trainer.train()
+            assert result["examples_seen"] == 2
+            png = sample_output.sample_output_file_name(trainer.cfg.prefix, 0)
+            assert os.path.isfile(png) == render
+            states.append({k: v.cpu() for k, v in result["module"].state_dict().items()})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert states[0].keys() == states[1].keys()
+    for name in states[0]:
+        assert torch.equal(states[0][name], states[1][name]), name

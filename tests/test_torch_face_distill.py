@@ -229,9 +229,13 @@ def test_trainer_checkpoints_and_resume_bitwise(inputs, tmp_path):
 
 
 def test_pipeline_refuses_what_is_not_ported(inputs, tmp_path):
+    """More than one GPU is refused until the data-parallel slice.  Sample
+    outputs are ported: a config's cadence (10 000 by default) gives the
+    trainer its sample writer, and null gives none."""
     jobs = _jobs(inputs, str(tmp_path / "samples"))
     jobs.config = dataclasses.replace(jobs.config, face_morpher_num_training_examples_per_sample_output=10_000)
-    with pytest.raises(NotImplementedError, match="sample_output.py"):
-        jobs.make_face_trainer()
+    trainer = jobs.make_face_trainer()
+    assert trainer.cfg.examples_per_sample_output == 10_000 and trainer.sample_output_fn == jobs.write_face_samples
+    assert _jobs(inputs, str(tmp_path / "off")).make_face_trainer().sample_output_fn is None
     with pytest.raises(NotImplementedError, match="data-parallel"):
         DistillationJobs(dataclasses.replace(inputs, num_gpus=2))

@@ -121,10 +121,11 @@ def random_teacher_07(gen: torch.Generator, cfg=None):
     return teacher.params()
 
 
-def write_distiller_inputs(directory: str, seed: int = 0, batch_size: int = 8) -> str:
+def write_distiller_inputs(directory: str, seed: int = 0, batch_size: int = 8, sample_cadence: Optional[int] = None) -> str:
     """Write ``character.png``, ``face_mask.png`` and ``config.yaml`` (a
-    ``DistillerConfig`` with its prefix under ``directory/job`` and sample
-    outputs off) into ``directory``; returns the yaml's path."""
+    ``DistillerConfig`` with its prefix under ``directory/job`` and both
+    students' sample outputs every ``sample_cadence`` examples, off by
+    default) into ``directory``; returns the yaml's path."""
     import PIL.Image
 
     from tha4_tpu_torch.distiller.config import DistillerConfig
@@ -137,8 +138,8 @@ def write_distiller_inputs(directory: str, seed: int = 0, batch_size: int = 8) -
         prefix=os.path.join(directory, "job"),
         character_image_file_name=character,
         face_mask_image_file_name=mask,
-        face_morpher_num_training_examples_per_sample_output=None,
-        body_morpher_num_training_examples_per_sample_output=None,
+        face_morpher_num_training_examples_per_sample_output=sample_cadence,
+        body_morpher_num_training_examples_per_sample_output=sample_cadence,
         face_morpher_batch_size=batch_size,
         body_morpher_batch_size=batch_size,
     )

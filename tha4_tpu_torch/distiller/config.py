@@ -9,6 +9,7 @@ CUDA devices; this port trains on one until its data-parallel slice.
 from __future__ import annotations
 
 import os
+import shutil
 from dataclasses import asdict, dataclass
 from typing import Optional
 
@@ -87,8 +88,33 @@ class DistillerConfig:
         config.check()
         return config
 
+    # The derived paths of the task DAG, the JAX package's.
+
+    def config_yaml_file_name(self) -> str:
+        return f"{self.prefix}/config.yaml"
+
     def face_morpher_prefix(self) -> str:
         return f"{self.prefix}/face_morpher"
 
     def body_morpher_prefix(self) -> str:
         return f"{self.prefix}/body_morpher"
+
+    def character_model_prefix(self) -> str:
+        return f"{self.prefix}/character_model"
+
+    def character_model_face_morpher_file_name(self) -> str:
+        return f"{self.character_model_prefix()}/face_morpher.pt"
+
+    def character_model_body_morpher_file_name(self) -> str:
+        return f"{self.character_model_prefix()}/body_morpher.pt"
+
+    def character_model_character_png_file_name(self) -> str:
+        return f"{self.character_model_prefix()}/character.png"
+
+    def character_model_yaml_file_name(self) -> str:
+        return f"{self.character_model_prefix()}/character_model.yaml"
+
+
+def copy_file(source_file_name: str, dest_file_name: str) -> None:
+    os.makedirs(os.path.dirname(dest_file_name), exist_ok=True)
+    shutil.copyfile(source_file_name, dest_file_name)

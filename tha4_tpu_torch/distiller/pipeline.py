@@ -1,36 +1,54 @@
-"""Distillation jobs: config -> trainers (counterpart of
-``tha4_tpu/distiller/pipeline.py``).
+"""Distillation: config -> trainers -> task DAG -> character model
+(counterpart of ``tha4_tpu/distiller/pipeline.py``).
 
-    DistillationJobs(config, teacher_params_12=..., face_total_examples=...,
-                     examples_per_checkpoint=...).make_face_trainer().train()
-    DistillationJobs(config, teacher_params_07=..., body_total_examples=...,
-                     ...).make_body_trainer(phases=None).train()
+    run_config(config, target="all")        # what tha4-torch-distill runs
+    DistillationJobs(config, ...).make_face_trainer().train()
+    DistillationJobs(config, ...).make_body_trainer(phases=None).train()
+
+``run_config`` defines the file-task DAG (``tasks/workspace.py``) and runs
+one of its nodes: per-checkpoint training tasks for both students, the
+character PNG copy, both students' export to ``.pt`` and the
+``character_model.yaml`` that ties them together, under
+``{prefix}/character_model/``.  A file task reruns only when its file is
+missing or older than a dependency, and training resumes from the newest
+snapshot or checkpoint, so a run may be stopped at any time and the same
+command rerun (the reference's documented contract, docs/distill.md).
 
 The teachers are injected as reference state dicts (``mode_07.init`` /
 ``mode_12.init`` make seeded random ones; mode_12's are mode_07's first
 three where only mode_07's are given) or, failing that, loaded from the
-``data/tha4/*.pt`` files.  Not here yet: the file-task DAG and the
-``tha4-distill`` command, sample grids (``distiller/sample_output.py``) and
-student export; more than one GPU waits for the data-parallel slice.
+``data/tha4/*.pt`` files.  Each student's trainer writes a sample grid
+(``distiller/sample_output.py``) at its config's cadence, rendered by the
+trainer's frozen teacher, in f32 as the JAX render runs it, and the live
+student.  More than one GPU waits for the data-parallel slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
-from tha4_tpu_torch.distiller import recipes
-from tha4_tpu_torch.distiller.config import POSE_DATASET_FILE_NAME, DistillerConfig
+from tha4_tpu_torch.charmodel.character_model import CharacterModel
+from tha4_tpu_torch.convert.export_torch import save_module_pt
+from tha4_tpu_torch.distiller import recipes, sample_output
+from tha4_tpu_torch.distiller.config import POSE_DATASET_FILE_NAME, DistillerConfig, copy_file
 from tha4_tpu_torch.distiller.pose_dataset import PoseSource
 from tha4_tpu_torch.models import siren
 from tha4_tpu_torch.poser.modes import mode_07, mode_12
+from tha4_tpu_torch.tasks.workspace import Workspace, file_task
+from tha4_tpu_torch.training import checkpoint as ckpt
 from tha4_tpu_torch.training.schedules import TrainingPhases
-from tha4_tpu_torch.training.trainer import Trainer, TrainerConfig
+from tha4_tpu_torch.training.trainer import KEY_MODULE, Trainer, TrainerConfig
+
+FACE_SAMPLES, FACE_SAMPLE_CELL = 8, 128  # 8 poses x (teacher crop | student)
+BODY_SAMPLES, BODY_SAMPLE_CELL = 4, 512  # 4 poses x (teacher | student | alpha | grid change)
 
 
 class DistillationJobs:
-    """Builds the two students' trainings for one config.
+    """Builds the two students' trainings, and the task DAG, for one config.
 
     ``student_mixed`` (the JAX package's default): the body student trains
     in selective f32, bf16 matmul operands with f32 sums, sines and head."""
@@ -67,12 +85,22 @@ class DistillationJobs:
         self.face_student_cfg = siren.SirenFaceMorpherConfig()
         self.body_student_cfg = siren.SirenMorpherConfig()
         self.pose_source = PoseSource(POSE_DATASET_FILE_NAME)
+        self._character_image = None
+        self._face_teachers = {}  # dtype -> frozen mode_12
+        self._body_teachers = {}  # dtype -> frozen mode_07
+        self._face_trainer = None
+        self._body_trainer = None
+
+    # -- lazy heavy assets -------------------------------------------------
 
     def character_image(self) -> torch.Tensor:
         """(1, 512, 512, 4) f32 in model units, on the device."""
         from tha4_tpu_torch.core import imagecodec
 
-        return torch.from_numpy(imagecodec.load_image_hwc(self.config.character_image_file_name))[None].to(self.device)
+        if self._character_image is None:
+            image = imagecodec.load_image_hwc(self.config.character_image_file_name)
+            self._character_image = torch.from_numpy(image)[None].to(self.device)
+        return self._character_image
 
     def teacher_params_07(self) -> mode_07.Params:
         if self._teacher_params_07 is None:
@@ -87,25 +115,37 @@ class DistillationJobs:
                 self._teacher_params_12 = mode_12.load_params_from_torch()
         return self._teacher_params_12
 
+    def face_teacher(self, dtype: Optional[torch.dtype] = None) -> mode_12.FaceTeacher:
+        """The frozen mode_12 teacher in ``dtype`` (default: the compute
+        dtype), made once per dtype: in the compute dtype it labels the face
+        student's batches, in f32 it renders the sample grids' teacher
+        column, as the JAX render runs its f32 params."""
+        dtype = dtype or self.compute_dtype
+        if dtype not in self._face_teachers:
+            self._face_teachers[dtype] = mode_12.FaceTeacher.from_params(self.teacher_params_12(), self.teacher_cfg_12).freeze(
+                dtype, self.device)
+        return self._face_teachers[dtype]
+
+    def body_teacher(self, dtype: Optional[torch.dtype] = None) -> mode_07.Teacher:
+        """The frozen mode_07 teacher (as ``face_teacher``), for the body student."""
+        dtype = dtype or self.compute_dtype
+        if dtype not in self._body_teachers:
+            self._body_teachers[dtype] = mode_07.Teacher.from_params(self.teacher_params_07(), self.teacher_cfg_07).freeze(
+                dtype, self.device)
+        return self._body_teachers[dtype]
+
     def checkpoint_boundaries(self, total: int):
         return [self.examples_per_checkpoint * (i + 1) for i in range(total // self.examples_per_checkpoint)]
 
-    @staticmethod
-    def _refuse_sample_outputs(name: str, cadence) -> None:
-        if cadence is not None:
-            raise NotImplementedError(
-                f"{name} is set, but sample outputs (distiller/sample_output.py) are not ported yet: set it to null"
-            )
+    # -- face student ------------------------------------------------------
 
     def make_face_trainer(self) -> Trainer:
         config = self.config
-        self._refuse_sample_outputs("face_morpher_num_training_examples_per_sample_output",
-                                    config.face_morpher_num_training_examples_per_sample_output)
-        dtype, device = self.compute_dtype, self.device
-        teacher = mode_12.FaceTeacher.from_params(self.teacher_params_12(), self.teacher_cfg_12).freeze(dtype, device)
+        device = self.device
         mask = torch.from_numpy(recipes.load_face_mask_crop(config.face_mask_image_file_name)).to(device)
-        step = recipes.make_face_distill_step(teacher, self.character_image(), mask, dtype)
+        step = recipes.make_face_distill_step(self.face_teacher(), self.character_image(), mask, self.compute_dtype)
         batch = config.face_morpher_batch_size
+        cadence = config.face_morpher_num_training_examples_per_sample_output
 
         def init_module(gen):
             return siren.SirenFaceMorpher(self.face_student_cfg, generator=gen).to(device)
@@ -119,25 +159,54 @@ class DistillationJobs:
                 checkpoint_examples=self.checkpoint_boundaries(self.face_total_examples),
                 total_batch_size=batch,
                 examples_per_snapshot=self.examples_per_snapshot,
+                examples_per_sample_output=cadence,
                 random_seed=config.face_morpher_random_seed_0,
             ),
             init_module=init_module,
             make_optimizer=recipes.make_adam,
             train_step=train_step,
             lr_fn=recipes.default_face_lr_fn(),
+            sample_output_fn=self.write_face_samples if cadence is not None else None,
         )
+
+    def sample_poses(self, seed: int, n: int) -> torch.Tensor:
+        """The sample grid's n poses: the same at every render, from their
+        own generator, so that no step's batch moves."""
+        return self.pose_source.batch(torch.Generator().manual_seed(seed), n)
+
+    @torch.no_grad()
+    def render_face_samples(self, student: siren.SirenFaceMorpher, poses: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        """(teacher crops, student crops), each (N, 128, 128, 4) f32 numpy:
+        the frozen teacher and the live student, packed afresh, both in f32
+        whatever the compute dtype (the JAX render's dtype).  ``no_grad``,
+        not ``inference_mode``: constants first made here serve training."""
+        poses = poses.to(self.device)
+        gt = recipes.face_teacher_targets(self.face_teacher(torch.float32), self.character_image(), poses, torch.float32)
+        chain = student.pack(torch.float32, self.device)
+        pred = siren.siren_face_morpher_apply(student.cfg, chain, poses[:, : student.cfg.pose_size])
+        return gt.float().cpu().numpy(), pred.float().cpu().numpy()
+
+    def write_face_samples(self, student: siren.SirenFaceMorpher, examples_seen: int) -> None:
+        """8 poses x (teacher crop | student), 128^2 cells (reference
+        siren_face_morpher_protocols_00.py sample grids)."""
+        poses = self.sample_poses(self.config.face_morpher_random_seed_1, FACE_SAMPLES)
+        gt, pred = self.render_face_samples(student, poses)
+        color = sample_output.ImageType.COLOR
+        cells = [[(gt[i], color), (pred[i], color)] for i in range(len(gt))]
+        path = sample_output.sample_output_file_name(self.config.face_morpher_prefix(), examples_seen)
+        sample_output.save_sample_grid(cells, path, cell_size=FACE_SAMPLE_CELL)
+
+    # -- body student ------------------------------------------------------
 
     def make_body_trainer(self, phases: Optional[TrainingPhases] = None) -> Trainer:
         """The body student's trainer; ``phases`` (default: the reference's
         six) set the lr and the four loss weights by examples seen."""
         config = self.config
-        self._refuse_sample_outputs("body_morpher_num_training_examples_per_sample_output",
-                                    config.body_morpher_num_training_examples_per_sample_output)
         phases = phases or recipes.default_body_phases()
-        dtype, device = self.compute_dtype, self.device
-        teacher = mode_07.Teacher.from_params(self.teacher_params_07(), self.teacher_cfg_07).freeze(dtype, device)
-        step = recipes.make_body_distill_step(teacher, self.character_image(), dtype, self.student_mixed)
+        device = self.device
+        step = recipes.make_body_distill_step(self.body_teacher(), self.character_image(), self.compute_dtype, self.student_mixed)
         batch = config.body_morpher_batch_size
+        cadence = config.body_morpher_num_training_examples_per_sample_output
 
         def init_module(gen):
             return siren.SirenMorpher(self.body_student_cfg, generator=gen).to(device)
@@ -151,6 +220,7 @@ class DistillationJobs:
                 checkpoint_examples=self.checkpoint_boundaries(self.body_total_examples),
                 total_batch_size=batch,
                 examples_per_snapshot=self.examples_per_snapshot,
+                examples_per_sample_output=cadence,
                 random_seed=config.body_morpher_random_seed_0,
             ),
             init_module=init_module,
@@ -158,4 +228,136 @@ class DistillationJobs:
             train_step=train_step,
             lr_fn=phases.learning_rate,
             loss_weights_fn=lambda examples_seen: phases.loss_weights(recipes.BODY_LOSS_TERMS, examples_seen),
+            sample_output_fn=self.write_body_samples if cadence is not None else None,
         )
+
+    @torch.no_grad()
+    def render_body_samples(self, student: siren.SirenMorpher, poses: torch.Tensor) -> Tuple[np.ndarray, ...]:
+        """(teacher posed, student blended, alpha, grid change), each (N,
+        512, 512, *) f32 numpy: the frozen mode_07 and the live student,
+        packed afresh and run on the teacher's face_morphed_full, both in
+        f32 (as ``render_face_samples``)."""
+        n = poses.shape[0]
+        poses = poses.to(self.device)
+        image = self.character_image().expand(n, -1, -1, -1)
+        t = mode_07.compute_outputs(self.body_teacher(torch.float32), image, poses)
+        chains = student.pack(torch.float32, self.device)
+        outs = siren.siren_morpher_apply(student.cfg, chains, t[mode_07.INDEX_FACE_MORPHED_FULL], poses)
+        picked = (t[0], outs[siren.SIREN_MORPHER_INDEX_BLENDED_IMAGE], outs[siren.SIREN_MORPHER_INDEX_ALPHA],
+                  outs[siren.SIREN_MORPHER_INDEX_GRID_CHANGE])
+        return tuple(x.float().cpu().numpy() for x in picked)
+
+    def write_body_samples(self, student: siren.SirenMorpher, examples_seen: int) -> None:
+        """4 poses x (teacher | student | alpha | grid change), 512^2 cells
+        (reference siren_morpher_protocols_03.py:217-352)."""
+        poses = self.sample_poses(self.config.body_morpher_random_seed_1, BODY_SAMPLES)
+        posed, pred, alpha, grid = self.render_body_samples(student, poses)
+        kinds = (sample_output.ImageType.COLOR, sample_output.ImageType.COLOR, sample_output.ImageType.ALPHA,
+                 sample_output.ImageType.GRID_CHANGE)
+        cells = [list(zip((posed[i], pred[i], alpha[i], grid[i]), kinds)) for i in range(len(posed))]
+        path = sample_output.sample_output_file_name(self.config.body_morpher_prefix(), examples_seen)
+        sample_output.save_sample_grid(cells, path, cell_size=BODY_SAMPLE_CELL)
+
+    # -- task DAG (reference distiller_config.py:250-310) ------------------
+
+    def define_tasks(self, workspace: Workspace) -> None:
+        """The JAX package's DAG, its task names and dependencies.  One
+        trainer per student serves all of its checkpoint tasks, made when
+        the first of them runs, so that listing the DAG or running an up to
+        date one freezes no teacher."""
+        config = self.config
+
+        @file_task(workspace, config.config_yaml_file_name(), [])
+        def create_config_yaml():
+            config.save(config.config_yaml_file_name())
+
+        def student_tasks(prefix: str, total: int, make_trainer: Callable[[], Trainer]) -> str:
+            prev = [config.config_yaml_file_name()]
+            for i, boundary in enumerate(self.checkpoint_boundaries(total)):
+                target_file = os.path.join(ckpt.checkpoint_dir(prefix, i + 1), f"module_{KEY_MODULE}.npz")
+
+                def run(boundary=boundary):
+                    make_trainer().train(boundary)
+
+                workspace.create_file_task(target_file, list(prev), run)
+                prev = [target_file]
+            workspace.create_command_task(f"{prefix}/train", list(prev))
+            return prev[0]
+
+        def face_trainer() -> Trainer:
+            if self._face_trainer is None:
+                self._face_trainer = self.make_face_trainer()
+            return self._face_trainer
+
+        def body_trainer() -> Trainer:
+            if self._body_trainer is None:
+                self._body_trainer = self.make_body_trainer()
+            return self._body_trainer
+
+        face_final = student_tasks(config.face_morpher_prefix(), self.face_total_examples, face_trainer)
+        body_final = student_tasks(config.body_morpher_prefix(), self.body_total_examples, body_trainer)
+
+        @file_task(workspace, config.character_model_character_png_file_name(), [config.character_image_file_name])
+        def copy_character_image():
+            copy_file(config.character_image_file_name, config.character_model_character_png_file_name())
+
+        @file_task(workspace, config.character_model_face_morpher_file_name(), [face_final])
+        def export_face_morpher():
+            self._export_student(face_final, siren.SirenFaceMorpher(self.face_student_cfg),
+                                 config.character_model_face_morpher_file_name())
+
+        @file_task(workspace, config.character_model_body_morpher_file_name(), [body_final])
+        def export_body_morpher():
+            self._export_student(body_final, siren.SirenMorpher(self.body_student_cfg),
+                                 config.character_model_body_morpher_file_name())
+
+        @file_task(workspace, config.character_model_yaml_file_name(), [])
+        def create_character_model_yaml():
+            CharacterModel(
+                config.character_model_character_png_file_name(),
+                config.character_model_face_morpher_file_name(),
+                config.character_model_body_morpher_file_name(),
+            ).save(config.character_model_yaml_file_name())
+
+        workspace.create_command_task(
+            f"{config.prefix}/all",
+            [
+                f"{config.face_morpher_prefix()}/train",
+                f"{config.body_morpher_prefix()}/train",
+                config.character_model_character_png_file_name(),
+                config.character_model_face_morpher_file_name(),
+                config.character_model_body_morpher_file_name(),
+                config.character_model_yaml_file_name(),
+            ],
+        )
+
+    @staticmethod
+    def _export_student(checkpoint_file: str, module: torch.nn.Module, dest: str) -> None:
+        """The last checkpoint's ``module_module.npz`` loaded into a fresh
+        student on the CPU in f32, written in the reference ``.pt`` format.
+        The file is written under a temporary directory, with its own name
+        (``torch.save`` records it), and renamed into place, so that a run
+        stopped mid-write leaves no file that looks up to date."""
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in ckpt._load_npz(checkpoint_file).items()})
+        partial = os.path.join(os.path.dirname(dest), f".{os.path.basename(dest)}.partial")
+        os.makedirs(partial, exist_ok=True)
+        staged = os.path.join(partial, os.path.basename(dest))
+        save_module_pt(module, staged)
+        os.replace(staged, dest)
+        os.rmdir(partial)
+
+
+def run_config(config: DistillerConfig, target: str = "all", **kwargs) -> None:
+    """The distill entry (reference app/distill.py:8-25): define the DAG and
+    run ``target``, ``all`` (the whole pipeline, the default), ``face`` or
+    ``body`` (that student's training task alone).  ``kwargs`` go to
+    ``DistillationJobs``."""
+    jobs = DistillationJobs(config, **kwargs)
+    workspace = Workspace()
+    jobs.define_tasks(workspace)
+    if target == "face":
+        workspace.run(f"{config.face_morpher_prefix()}/train")
+    elif target == "body":
+        workspace.run(f"{config.body_morpher_prefix()}/train")
+    else:
+        workspace.run(f"{config.prefix}/all")
