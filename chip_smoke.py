@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training and distillation to a character model on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training, distillation to a character model and the verification slice (the int8 teacher, tha4-torch-verify, tha4-torch-eval) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -127,14 +127,29 @@ Phases, one or more lines each:
     ``CharacterModel.load(...).get_poser(...)`` in f32 and bf16 (4 K1 and
     1 K2 a frame), f32 equal bit for bit to a poser from the last
     checkpoints' ``.npz`` files, bf16 >= 28 dB; ms/step through the DAG,
-    the sample grids' and renders' ms and an export's.
+    the sample grids' and renders' ms and an export's;
+15. the verification slice: Q1 (``int8_conv``, the int8 teacher's conv)
+    against its plain version bit for bit at every (dtype, signature) of
+    the full-width mode_07 at B = 8 and of mode_12, bf16 and f32, timed at
+    the costliest beside ``torch._int_mm`` on an im2col and cuDNN; the int8
+    teacher's body labels (outputs 0, 2, 3, 5) against bf16 and f32 (label
+    PSNR, grid-change L1) and its time a call against bf16;
+    ``pipeline.run_config`` with ``teacher_int8`` (``tha4-torch-distill
+    --teacher-int8``), 8 steps a student, beside the same run without it:
+    Q1 launched once per eligible conv per teacher call and K6 never, both
+    scales files written; ``tha4-torch-verify`` on a full-width bundle it
+    writes (five damped random teacher ``.pt`` files, a pose dataset, a
+    synthetic character and mask, a random character model; no reference
+    source): exit 0, steps 2 and 5 ``skip``, the rest ``ok``; and
+    ``tha4-torch-eval --against`` between two random character models, f32
+    and bf16.
 
 The line before the last is a JSON object with one entry per kernel (K1,
-K2, K3's forward and grid backward, K4-K6, the fold, and K7 and the TPU
+K2, K3's forward and grid backward, K4-K6, the fold, Q1, and K7 and the TPU
 probe ``tools/warp_probe.py`` under their counterparts K6 and K2), each
 with its bound: the larger of the bytes it
 must move over 3.35 TB/s and its multiply-adds over the card's peak for
-their type (989 TFLOP/s bf16, 67 TFLOP/s f32; the H100 SXM data sheet); the
+their type (989 TFLOP/s bf16, 67 TFLOP/s f32, 1979 TOP/s int8; the H100 SXM data sheet); the
 last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the
 script exits non-zero without printing that line; so does a machine without
@@ -1828,7 +1843,7 @@ def phase_distill(torch, workdir: str, teacher_params) -> dict:
         Trainer.train, Trainer._save, Trainer._load_or_init = train, save, load
         pipeline.DistillationJobs.write_face_samples = write_face
         pipeline.DistillationJobs.write_body_samples = write_body
-        pipeline.DistillationJobs._export_student = export
+        pipeline.DistillationJobs._export_student = staticmethod(export)
         torch.backends.cudnn.deterministic = deterministic
 
     face_step = {"sine_chain_t": 1, "sine_chain_t_bwd": 1, "grid_sample_fast": 2}
@@ -2247,6 +2262,301 @@ def phase_teacher_poser(torch, workdir: str, teacher_params) -> dict:
     return results
 
 
+# -- phase 15: the verification slice (Q1, the int8 teacher, tha4-torch-verify and -eval) --
+
+INT8_PEAK_OPS = 1979e12  # dense int8 tensor-core rate of one H100 SXM (NVIDIA's data sheet)
+INT8_STEPS = 8  # phase_int8: steps a student with and without --teacher-int8
+CAL_SEED = 0xCA11B
+
+
+def _q1_bound(x, cout: int, k: int) -> dict:
+    """Q1's least time: x read once, the int8 weight, scale and bias, the
+    output written once (x's dtype), over the memory rate; 2 x its
+    multiply-adds over the int8 tensor-core peak."""
+    n, h, w, cin = x.shape
+    nbytes = x.numel() * x.element_size() + k * k * cin * cout + 4 * cout + (n * h * w + 1) * cout * x.element_size()
+    macs = n * h * w * cout * k * k * cin
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2.0 * macs / INT8_PEAK_OPS * 1e3
+    return {"bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations", "macs": macs}
+
+
+def _q1_library_ms(torch, x, w8, x_scale: float, k: int) -> dict:
+    """The yardstick: ``torch._int_mm`` (int8 x int8 -> int32) on an
+    ``F.unfold`` im2col of the quantized x, alone and with the quantize and
+    the unfold; never used by the port."""
+    import torch.nn.functional as F
+
+    n, h, w, cin = x.shape
+    cout = w8.shape[3]
+    inv = float(np.float32(1.0 / x_scale))
+    b = w8.permute(2, 0, 1, 3).reshape(cin * k * k, cout).contiguous()
+
+    def im2col():
+        xq = torch.round(x.float() * inv).clamp(-127, 127).permute(0, 3, 1, 2)
+        cols = F.unfold(xq, k, padding=k // 2) if k > 1 else xq.reshape(n, cin, h * w)
+        return cols.transpose(1, 2).reshape(n * h * w, cin * k * k).to(torch.int8)
+
+    a = im2col()
+    return {"library_ms": _device_ms(lambda: torch._int_mm(a, b), reps=20, warmup=2),
+            "library_with_unfold_ms": _device_ms(lambda: torch._int_mm(im2col(), b), reps=20, warmup=2)}
+
+
+def _check_q1_at_the_path(torch, fn, teacher, images, poses, scales, errs: dict, costliest: dict) -> None:
+    """One int8 call of ``fn`` with every eligible conv's Q1 output held
+    against its plain version on the same card inputs, bit for bit, at each
+    (dtype, signature) not yet in ``errs`` (which records the error); the
+    inputs of the costliest conv of each dtype (most multiply-adds) are
+    kept in ``costliest`` for its timing."""
+    from tha4_tpu_torch.ops import cuda_int8_conv, quant
+
+    real = quant.conv_hook
+
+    def checked(ctx, conv, x):
+        out = real(ctx, conv, x)
+        sig = quant.nchw_signature(x, conv)
+        key = ("bf16" if x.dtype == torch.bfloat16 else "f32", json.dumps(sig))
+        if key not in errs:
+            xs, k = x.permute(0, 2, 3, 1), conv.kernel_size[0]
+            w8 = cuda_int8_conv._hwio(conv.int8_layout, xs.shape[3])
+            bias = None if conv.bias is None else conv.bias.to(x.dtype)
+            scale = ctx.scales[ctx.idx - 1]["scale"]
+            plain = cuda_int8_conv.int8_conv_plain(xs, w8, conv.int8_scale, scale, conv.padding[0], bias)
+            errs[key] = float((out.permute(0, 2, 3, 1).float() - plain.float()).abs().max())
+            if not torch.equal(out.permute(0, 2, 3, 1), plain):
+                raise AssertionError(f"Q1 {key}: differs from its plain version by {errs[key]}")
+            macs = xs.shape[0] * xs.shape[1] * xs.shape[2] * w8.shape[3] * k * k * xs.shape[3]
+            if macs > costliest.get(key[0], {}).get("macs", 0):
+                costliest[key[0]] = {"signature": key[1], "macs": macs, "x": xs.contiguous(), "w8": w8,
+                                     "args": (conv.int8_layout, conv.int8_scale, scale, conv.padding[0], bias)}
+        return out
+
+    quant.conv_hook = checked
+    try:
+        with torch.no_grad(), quant.apply_scales(scales):
+            fn(teacher, images, poses)
+        torch.cuda.synchronize()
+    finally:
+        quant.conv_hook = real
+
+
+def _damped_teacher_files(torch, teacher_params, directory: str) -> None:
+    """The five full-width teacher state dicts as ``.pt`` files, the heads
+    damped as tests/test_verify.py:83-91 damps its stand-ins."""
+    from tha4_tpu_torch.poser.modes import mode_07
+
+    gen = torch.Generator().manual_seed(SEED + 50)
+    params = {key: {k: v.clone() for k, v in sd.items()} for key, sd in teacher_params.items()}
+    damped = [("eyebrow_morphing_combiner", "morphed_eyebrow_layer_grid_change.weight", 0.02),
+              ("face_morpher", "iris_mouth_grid_change.weight", 0.02),
+              ("body_morpher", "body.last.2.weight", 0.01), ("body_morpher", "body.last.2.bias", 0.01),
+              ("upscaler", "body.last.2.weight", 0.01), ("upscaler", "body.last.2.bias", 0.01),
+              ("upscaler", "coarse_image_conv.weight", 0.05), ("upscaler", "coarse_image_conv.bias", 0.05)]
+    for net, name, std in damped:
+        params[net][name] = torch.randn(params[net][name].shape, generator=gen) * std
+    os.makedirs(directory, exist_ok=True)
+    for key in mode_07.NETWORK_KEYS:
+        torch.save(params[key], os.path.join(directory, f"{key}.pt"))
+
+
+def phase_int8(torch, workdir: str, teacher_params, image) -> dict:
+    """Phase 15: Q1 against its plain version at every eligible signature of
+    the full-width mode_07 (B = 8) and mode_12, bf16 and f32, and timed at
+    the costliest; the int8 teacher's body labels against bf16 and f32;
+    ``tha4-torch-distill --teacher-int8`` through ``pipeline.run_config``
+    (8 steps a student, beside the run without it); ``tha4-torch-verify``
+    on a written full-width bundle; ``tha4-torch-eval --against``."""
+    import contextlib
+    import io
+
+    import PIL.Image
+
+    from tha4_tpu_torch.apps import evaluate, verify
+    from tha4_tpu_torch.charmodel.synthetic import (
+        synthetic_face_mask, write_distiller_inputs, write_random_character_model,
+    )
+    from tha4_tpu_torch.distiller import pipeline, recipes
+    from tha4_tpu_torch.distiller.config import DistillerConfig
+    from tha4_tpu_torch.distiller.pose_dataset import sample_poses
+    from tha4_tpu_torch.ops import cuda_conv, cuda_int8_conv, cuda_poly_sin, cuda_siren, cuda_warp, quant
+    from tha4_tpu_torch.poser.modes import mode_07, mode_12
+    from tha4_tpu_torch.utils import fidelity
+
+    t_phase = time.perf_counter()
+    results = {}
+    cal_poses = sample_poses(torch.Generator().manual_seed(CAL_SEED), TRAIN_BATCH).cuda()
+    poses = sample_poses(torch.Generator().manual_seed(SEED + 51), TRAIN_BATCH).cuda()
+
+    # (a) Q1 at every eligible signature, bf16 and f32, mode_07 at B = 8 and mode_12.
+    errs, costliest, teachers, scales = {}, {}, {}, {}
+    for tag, dtype in [("bf16", torch.bfloat16), ("f32", torch.float32)]:
+        teachers[tag] = mode_07.Teacher.from_params(teacher_params).freeze(dtype, "cuda")
+        images = image.to(dtype).expand(TRAIN_BATCH, -1, -1, -1)
+        scales[tag] = quant.run_calibration(mode_07.compute_outputs, teachers[tag], images, cal_poses.to(dtype))
+        _check_q1_at_the_path(torch, mode_07.compute_outputs, teachers[tag], images, poses.to(dtype), scales[tag], errs,
+                              costliest)
+        face = mode_12.FaceTeacher.from_params({k: teacher_params[k] for k in mode_12.NETWORK_KEYS}).freeze(dtype, "cuda")
+        s12 = quant.run_calibration(mode_12.compute_outputs, face, images, cal_poses.to(dtype))
+        _check_q1_at_the_path(torch, mode_12.compute_outputs, face, images, poses.to(dtype), s12, errs, costliest)
+        results[f"convs_07_{tag}"], results[f"convs_12_{tag}"] = len(scales[tag]), len(s12)
+        del face
+    print(f"Q1: equal to its plain version bit for bit at all {len(errs)} (dtype, signature) pairs of the full-width "
+          f"mode_07 at B = {TRAIN_BATCH} ({results['convs_07_bf16']} eligible convs a call) and mode_12 "
+          f"({results['convs_12_bf16']}), bf16 and f32")
+
+    # Q1 timed at the costliest signature (most multiply-adds) at B = 8.
+    timed = {}
+    for tag, c in costliest.items():
+        x, w8, (layout, w_s, scale, pad, bias) = c["x"], c["w8"], c["args"]
+        k = w8.shape[0]
+        ms = _device_ms(lambda: cuda_int8_conv.int8_conv(x, layout, w_s, scale, pad, bias), reps=20, warmup=2)
+        plain_ms = _time_ms(lambda: cuda_int8_conv.int8_conv_plain(x, w8, w_s, scale, pad, bias), iters=3, warmup=1)
+        bound = _q1_bound(x, w8.shape[3], k)
+        lib = _q1_library_ms(torch, x, w8, scale, k)
+        conv_ms = _device_ms(lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w8.permute(3, 2, 0, 1).to(x.dtype),
+                                                                None, padding=pad), reps=20, warmup=2)
+        timed[tag] = {"signature": c["signature"], "ms": ms, "plain_ms": plain_ms, **bound, **lib, "cudnn_ms": conv_ms,
+                      "tops": 2.0 * bound["macs"] / ms / 1e9}
+        print(f"Q1 {tag} at {c['signature']} (B = {x.shape[0]}): {ms:.4f} ms ({timed[tag]['tops']:.1f} TOP/s), plain "
+              f"{plain_ms:.3f}, bound {bound['bound_ms']:.4f} ({bound['bound_by']}), torch._int_mm {lib['library_ms']:.4f} "
+              f"(with the quantize and unfold {lib['library_with_unfold_ms']:.4f}), cuDNN {tag} conv {conv_ms:.4f}")
+    max_err = max(errs.values())
+    costliest.clear()
+
+    # (b) The int8 teacher's body labels against bf16 and f32 at B = 8.
+    with torch.no_grad():
+        int8 = recipes.body_teacher_targets(teachers["bf16"], image, poses, torch.bfloat16, scales["bf16"])
+        bf16 = recipes.body_teacher_targets(teachers["bf16"], image, poses, torch.bfloat16)
+        f32 = recipes.body_teacher_targets(teachers["f32"], image, poses, torch.float32)
+    labels = {}
+    for name, (a, b) in {"int8_vs_bf16": (int8, bf16), "int8_vs_f32": (int8, f32), "bf16_vs_f32": (bf16, f32)}.items():
+        psnr = min(_psnr(a[i].float(), b[i].float()) for i in (0, 1, 3))
+        grid_l1 = float((a[2].float() - b[2].float()).abs().mean())
+        if not math.isfinite(grid_l1) or not psnr > 0.0:
+            raise AssertionError(f"int8 teacher labels {name}: PSNR {psnr}, grid L1 {grid_l1}")
+        labels[name] = {"psnr_min": psnr, "grid_change_l1": grid_l1}
+    k6, q1 = cuda_conv.fused_affine_conv3_nchw.launches, cuda_int8_conv.int8_conv.launches
+    with torch.no_grad():
+        teacher_ms = {
+            "int8": _time_ms(lambda: recipes.body_teacher_targets(teachers["bf16"], image, poses, torch.bfloat16, scales["bf16"]),
+                             iters=5, warmup=1),
+            "bf16": _time_ms(lambda: recipes.body_teacher_targets(teachers["bf16"], image, poses, torch.bfloat16), iters=5, warmup=1),
+        }
+    print(f"int8 teacher (bf16 activations) body labels at B = {TRAIN_BATCH}: {labels}; a call {teacher_ms['int8']:.2f} ms "
+          f"against bf16 {teacher_ms['bf16']:.2f} ms")
+    del teachers, int8, bf16, f32
+    torch.cuda.empty_cache()
+
+    # (c) tha4-torch-distill --teacher-int8 through run_config, 8 steps a student, and without it.
+    counters = [cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd, cuda_warp.grid_sample_fast,
+                cuda_warp.grid_sample_train_forward, cuda_warp.grid_sample_grid_backward, cuda_poly_sin.poly_sin_forward,
+                cuda_poly_sin.poly_sin_backward, cuda_conv.fused_affine_conv3_nchw, cuda_conv.fold_groupnorm_film,
+                cuda_int8_conv.int8_conv]
+    distill = {}
+    total = INT8_STEPS * TRAIN_BATCH
+    step_ms = {}
+    make_face, make_body = recipes.make_face_distill_step, recipes.make_body_distill_step
+
+    def timed_steps(make, kind):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                step_ms.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+        return made
+
+    recipes.make_face_distill_step, recipes.make_body_distill_step = (timed_steps(make_face, "face"),
+                                                                      timed_steps(make_body, "body"))
+    try:
+        for arm, int8_on in (("int8", True), ("bf16", False)):
+            config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, f"distill_{arm}"), seed=SEED + 52,
+                                                                 batch_size=TRAIN_BATCH))
+            step_ms.clear()
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            pipeline.run_config(config, target="all", teacher_params_07=teacher_params, compute_dtype=torch.bfloat16,
+                                device="cuda", face_total_examples=total, body_total_examples=total,
+                                examples_per_checkpoint=total, examples_per_snapshot=total, teacher_int8=int8_on)
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in counters}
+            files = {tag: os.path.join(config.prefix, f"teacher_int8_scales_{tag}.json") for tag in ("07", "12")}
+            row = {"launches": launches, "s": time.perf_counter() - t0,
+                   "ms_step": {k: statistics.median(v[1:]) for k, v in step_ms.items()},
+                   "steps": {k: len(v) for k, v in step_ms.items()}}
+            if int8_on:
+                convs = {tag: len(quant.load_scales(path)) for tag, path in files.items()}
+                expected = INT8_STEPS * (convs["07"] + convs["12"])
+                unfused = ("fused_affine_conv3_nchw", "fold_groupnorm_film")  # the U-Nets' K6 path, not taken under int8
+                if launches["int8_conv"] != expected or any(bool(launches[k]) == (k in unfused) for k in launches):
+                    raise AssertionError(f"--teacher-int8: launches {launches}, expected {expected} Q1 (8 steps x "
+                                         f"{convs['07']} + 8 x {convs['12']} eligible convs), every student and warp "
+                                         "kernel, and no K6 or fold")
+                row["convs"] = convs
+            elif any(os.path.exists(p) for p in files.values()) or launches["int8_conv"]:
+                raise AssertionError(f"without --teacher-int8: launches {launches}, scales files written")
+            if row["steps"] != {"face": INT8_STEPS, "body": INT8_STEPS}:
+                raise AssertionError(f"distill {arm}: steps {row['steps']}")
+            if not os.path.isfile(config.character_model_yaml_file_name()):
+                raise AssertionError(f"distill {arm}: no character model written")
+            distill[arm] = row
+            print(f"tha4-torch-distill {'--teacher-int8' if int8_on else '(bf16 teacher)'} via run_config, "
+                  f"{INT8_STEPS} steps a student at B = {TRAIN_BATCH}: {row['s']:.1f} s, ms/step {row['ms_step']}, "
+                  f"launches {launches}" + (f", scales files with {row['convs']} convs" if int8_on else ""))
+    finally:
+        recipes.make_face_distill_step, recipes.make_body_distill_step = make_face, make_body
+
+    # (d) tha4-torch-verify on a written full-width bundle, no reference source.
+    data = os.path.join(workdir, "verify_data")
+    _damped_teacher_files(torch, teacher_params, os.path.join(data, "tha4"))
+    torch.save(torch.from_numpy(fidelity.random_pose_suite(64, seed=SEED + 53)), os.path.join(data, "pose_dataset.pt"))
+    model_dir = os.path.join(data, "character_models", "lambda_00")
+    write_random_character_model(model_dir, seed=SEED + 54)
+    os.makedirs(os.path.join(data, "images"), exist_ok=True)
+    PIL.Image.fromarray(synthetic_face_mask(512, SEED + 54)).save(os.path.join(data, "images", "lambda_00_face_mask.png"))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = verify.main(["--data-dir", data, "--poses", "2", "--examples", "64",
+                          "--reference-src", os.path.join(workdir, "no_reference_source")])
+    verify_s = time.perf_counter() - t0
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    statuses = {k: v["status"] for k, v in summary["checks"].items()}
+    want = {"teacher files load": "ok", "teacher weight conversion": "ok", "golden render": "skip",
+            "int8 teacher fidelity": "ok", "pose dataset": "ok", "distill smoke (loss decrease)": "ok",
+            "student fidelity eval": "skip"}
+    if rc != 0 or statuses != want:
+        raise AssertionError(f"tha4-torch-verify: exit {rc}, checks {summary['checks']}")
+    print(f"tha4-torch-verify on the full-width bundle: exit 0 in {verify_s:.1f} s; int8 check "
+          f"{summary['checks']['int8 teacher fidelity']}; distill smoke {summary['checks']['distill smoke (loss decrease)']}")
+
+    # (e) tha4-torch-eval --against between two written random character models, f32 and bf16.
+    other = write_random_character_model(os.path.join(workdir, "eval_b"), seed=SEED + 55)
+    yaml_a = os.path.join(model_dir, "character_model.yaml")
+    evals = {}
+    for dtype in ("f32", "bf16"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = evaluate.main(["--model", yaml_a, "--against", other, "--poses", "4", "--dtype", dtype])
+        stats = json.loads(out.getvalue().strip().splitlines()[-1])
+        stats["s"] = time.perf_counter() - t0
+        if rc != 0 or stats["frames"] != 4 or not all(math.isfinite(stats[k]) for k in ("psnr_min", "ssim_mean",
+                                                                                          "lpips_proxy_mean")):
+            raise AssertionError(f"tha4-torch-eval --against {dtype}: exit {rc}, {stats}")
+        evals[dtype] = stats
+    print(f"tha4-torch-eval --against: {evals}")
+    results.update(timed=timed, max_err=max_err, labels=labels, teacher_ms=teacher_ms, distill=distill,
+                   verify={"s": verify_s, "checks": summary["checks"]}, eval=evals, seconds=time.perf_counter() - t_phase)
+    print(f"phase 15: {results['seconds']:.1f} s")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2290,6 +2600,7 @@ def main() -> int:
         body_teacher = phase_body_teacher(torch, teacher_params, image)
         body = phase_body_training(torch, workdir, config, teacher_params)
         distill = phase_distill(torch, workdir, teacher_params)
+        int8 = phase_int8(torch, workdir, teacher_params, image)
 
     k5_mixed = k5["f32->bf16"]
     k6_main = k6["shapes"][K6_MAIN_SHAPE]
@@ -2460,6 +2771,28 @@ def main() -> int:
                          "the teacher poser's 4 poses in bf16 and in f32; no single PyTorch call computes it",
             },
             {
+                "name": "int8_conv", "route": "cuda", "source": "tha4_tpu_torch/csrc/int8_conv.cu",
+                "replaces": "tha4_tpu/ops/quant.py:219",
+                "launches": int8["distill"]["int8"]["launches"]["int8_conv"],
+                "max_abs_err": int8["max_err"], "ms": int8["timed"]["bf16"]["ms"], "plain_ms": int8["timed"]["bf16"]["plain_ms"],
+                "bound_ms": int8["timed"]["bf16"]["bound_ms"], "bound_by": int8["timed"]["bf16"]["bound_by"],
+                "library_ms": int8["timed"]["bf16"]["library_ms"],
+                "library_with_unfold_ms": int8["timed"]["bf16"]["library_with_unfold_ms"],
+                "cudnn_bf16_ms": int8["timed"]["bf16"]["cudnn_ms"], "signature": int8["timed"]["bf16"]["signature"],
+                "bound_share": int8["timed"]["bf16"]["bound_ms"] / int8["timed"]["bf16"]["ms"],
+                "ms_f32": int8["timed"]["f32"]["ms"], "plain_ms_f32": int8["timed"]["f32"]["plain_ms"],
+                "bound_ms_f32": int8["timed"]["f32"]["bound_ms"], "library_ms_f32": int8["timed"]["f32"]["library_ms"],
+                "cudnn_f32_ms": int8["timed"]["f32"]["cudnn_ms"], "signature_f32": int8["timed"]["f32"]["signature"],
+                "convs_per_call": {k: v for k, v in int8.items() if k.startswith("convs_")},
+                "timed": "device time, 20 calls back to back, at the costliest eligible conv (most multiply-adds) of the "
+                         "full-width mode_07 at B = 8, bf16 x; *_f32 with f32 x; plain: int8_conv_plain (an f64 cuDNN "
+                         "conv of the integers), one event pair a call; library: torch._int_mm on the F.unfold im2col "
+                         "alone (library_with_unfold_ms: with the quantize, unfold and cast); cudnn_*_ms: F.conv2d of the "
+                         "same shape in that dtype; bound: bytes over 3.35 TB/s or 2 x multiply-adds over the 1979 TOP/s "
+                         "int8 peak; max_abs_err: over every (dtype, signature) of mode_07 and mode_12; launches: the "
+                         "--teacher-int8 distillation run (8 face and 8 body steps)",
+            },
+            {
                 **{k: v for k, v in k6_entry.items() if k in KERNEL_KEYS}, "name": "fused_packed_conv3 (counterpart: affine_silu_conv3)",
                 "replaces": "tha4_tpu/ops/pallas_packed_conv.py:142",
                 "timed": "K6's numbers: the packed layout is a reshape of NHWC, and K6 on the NHWC view is its counterpart "
@@ -2478,6 +2811,8 @@ def main() -> int:
         "distill": {k: distill[k] for k in ("ms_step", "sample_write_ms", "render_ms", "grid_ms", "grid_counts", "export_ms",
                                              "cadence_s", "bf16_psnr")},
         "serving": {"bench": serving["bench"], "puppeteer": serving["puppeteer"], "seconds": serving["seconds"]},
+        "int8": {k: int8[k] for k in ("labels", "teacher_ms", "distill", "eval", "seconds")}
+        | {"verify_s": int8["verify"]["s"], "verify_int8": int8["verify"]["checks"]["int8 teacher fidelity"]},
     }
     for entry in kernels["kernels"]:
         if set(KERNEL_KEYS) - set(entry) or not entry["launches"] > 0:

@@ -555,3 +555,82 @@ def test_a_step_after_a_sample_render_equals_one_without(card, tmp_path, student
     assert states[0].keys() == states[1].keys()
     for name in states[0]:
         assert torch.equal(states[0][name], states[1][name]), name
+
+
+# -- Q1, the int8 teacher's conv (csrc/int8_conv.cu) --------------------------
+
+
+def _q1_case(card, dtype, n, h, w, cin, cout, k, seed):
+    from tha4_tpu_torch.ops import cuda_int8_conv, quant
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, cin), generator=gen).to(dtype)
+    wf = torch.randn((k, k, cin, cout), generator=gen) * 0.1
+    w8, w_s = quant.quantize_weight(wf)
+    bias = (torch.randn(cout, generator=gen) * 0.1).to(dtype)
+    scale = float(x.float().abs().max()) * 1.1 / 127.0
+    layout = cuda_int8_conv.weight_layout(w8)
+    ref = cuda_int8_conv.int8_conv(x, layout, w_s, scale, k // 2, bias)  # the plain version, on the CPU
+    args = (x.to(card), layout.to(card), w_s.to(card), scale, k // 2, bias.to(card))
+    return args, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,cout,k", [(2, 17, 23, 64, 96, 3), (1, 24, 24, 59, 32, 3), (3, 9, 31, 48, 16, 3),
+                                              (2, 16, 16, 128, 200, 1), (1, 13, 7, 16, 70, 1)])
+def test_q1_equals_its_plain_version_bit_for_bit(card, dtype, n, h, w, cin, cout, k):
+    """Exact integer sums on both sides, so the same bits: on ragged pixel
+    counts, Cin not a multiple of 16 or 32 (59: the pose-concatenated
+    bottleneck), Cout past and under one 64-channel tile, 3x3 and 1x1."""
+    from tha4_tpu_torch.ops import cuda_int8_conv
+
+    args, ref = _q1_case(card, dtype, n, h, w, cin, cout, k, seed=cin + cout)
+    before = cuda_int8_conv.int8_conv.launches
+    out = cuda_int8_conv.int8_conv(*args)
+    torch.cuda.synchronize()
+    assert cuda_int8_conv.int8_conv.launches == before + 1
+    assert out.dtype == dtype and torch.equal(out.cpu(), ref)
+    plain = cuda_int8_conv.int8_conv_plain(args[0], cuda_int8_conv._hwio(args[1], cin), *args[2:])
+    assert torch.equal(out, plain)  # the plain version on the card too
+
+
+def test_q1_raises_on_what_it_does_not_take(card):
+    from tha4_tpu_torch.ops import cuda_int8_conv
+
+    (x, layout, w_s, scale, pad, bias), _ = _q1_case(card, torch.float32, 1, 8, 8, 32, 32, 3, seed=1)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        cuda_int8_conv.int8_conv(x.half(), layout, w_s, scale, pad, None)
+    with pytest.raises(ValueError, match="padding"):
+        cuda_int8_conv.int8_conv(x, layout, w_s, scale, 0, bias)
+    with pytest.raises(ValueError, match="bias"):
+        cuda_int8_conv.int8_conv(x, layout, w_s, scale, pad, bias.double())
+    with pytest.raises(ValueError, match="x's device"):
+        cuda_int8_conv.int8_conv(x, layout.cpu(), w_s, scale, pad, bias)
+
+
+def test_resblock_under_a_scope_launches_q1_not_k6(card):
+    """A U-Net ResBlock with a 1x1 skip, frozen on the card: under
+    ``apply_scales`` it launches Q1 for conv0, conv1 and the skip and no
+    K6; outside the scope K6 and no Q1."""
+    from tha4_tpu_torch.models import unet
+    from tha4_tpu_torch.ops import cuda_conv, cuda_int8_conv, quant
+
+    gen = torch.Generator().manual_seed(3)
+    block = unet.ResBlock(32, 64, 16)
+    for p in block.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.1, generator=gen)
+    block.requires_grad_(False).eval().to(card)
+    quant.store_int8(block)
+    x = torch.randn((2, 16, 16, 32), generator=gen).to(card)
+    cond = torch.randn((2, 16), generator=gen).to(card)
+    scales = quant.run_calibration(block, x, cond, cond, 1.0)
+    assert [e["sig"][1] for e in scales] == [[3, 3, 32, 64], [3, 3, 64, 64], [1, 1, 32, 64]]
+    k6, q1 = cuda_conv.fused_affine_conv3_nchw.launches, cuda_int8_conv.int8_conv.launches
+    with torch.no_grad(), quant.apply_scales(scales):
+        out = block(x, cond, cond, 1.0)
+    torch.cuda.synchronize()
+    assert (cuda_conv.fused_affine_conv3_nchw.launches - k6, cuda_int8_conv.int8_conv.launches - q1) == (0, 3)
+    with torch.no_grad():
+        block(x, cond, cond, 1.0)
+    assert (cuda_conv.fused_affine_conv3_nchw.launches - k6, cuda_int8_conv.int8_conv.launches - q1) == (2, 3)
+    assert out.shape == (2, 16, 16, 64) and bool(torch.isfinite(out).all())

@@ -11,7 +11,7 @@ _SCRIPT = r"""
 import importlib, pkgutil, sys
 import tha4_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tha4_tpu_torch.__path__, "tha4_tpu_torch.")]
-# The face- and body-distillation, teacher-poser, serving and distill-to-a-character-model slices' modules are among them.
+# The face- and body-distillation, teacher-poser, serving, distill-to-a-character-model and verification slices' modules are among them.
 needed = {"ops.nn", "models.encoder_decoder", "models.eyebrow", "models.face_morpher", "poser.modes.mode_12",
           "training.losses", "training.schedules", "training.checkpoint", "training.trainer",
           "distiller.config", "distiller.pose_dataset", "distiller.recipes", "distiller.pipeline",
@@ -22,7 +22,8 @@ needed = {"ops.nn", "models.encoder_decoder", "models.eyebrow", "models.face_mor
           "mocap.mediapipe_face_pose", "mocap.mediapipe_face_pose_converter", "mocap.calibration",
           "utils.profiling", "utils.fidelity", "tools.bench", "tools.puppeteer_pairs", "apps.puppeteer",
           "apps.web_poser", "tasks.workspace", "training.tensorboard", "distiller.sample_output", "distiller.param_help",
-          "apps.distill", "apps.tasks_cli", "apps.distiller_ui"}
+          "apps.distill", "apps.tasks_cli", "apps.distiller_ui",
+          "ops.quant", "ops.cuda_int8_conv", "apps.evaluate", "apps.verify", "utils.threefry"}
 assert {"tha4_tpu_torch." + n for n in needed} <= set(names), sorted(needed - {n[len("tha4_tpu_torch."):] for n in names})
 for name in names:
     importlib.import_module(name)

@@ -46,13 +46,12 @@ def main(argv=None) -> int:
     parser.add_argument("--only", choices=("all", "face", "body"), default="all",
                         help="run only one student's training task from the DAG instead of the full pipeline")
     parser.add_argument("--teacher-int8", action="store_true",
-                        help="the JAX package's int8 frozen teacher; not ported, refused")
+                        help="run the frozen teacher with int8 convolutions (post-training quantization, calibrated once "
+                        "on the character image; ops/quant.py, the Q1 kernel); the distillation labels differ slightly "
+                        "from the bf16 teacher: tha4-torch-verify measures how much on the weights in use before you "
+                        "enable it")
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu (the kernels' plain versions)")
     args = parser.parse_args(argv)
-
-    if args.teacher_int8:
-        parser.error("--teacher-int8: the int8 frozen teacher (the JAX package's ops/quant.py) is not ported yet "
-                     "(ROADMAP Queue 1 item 6); run without it to train against the bf16 teacher")
 
     from tha4_tpu_torch.distiller import recipes
 
@@ -79,6 +78,7 @@ def main(argv=None) -> int:
                         "architecture); outputs are for pipeline and timing validation only")
         kwargs["teacher_params_07"] = mode_07.init(torch.Generator().manual_seed(0), mode_07.TeacherConfig())
     kwargs["student_mixed"] = args.mixed
+    kwargs["teacher_int8"] = args.teacher_int8
     pipeline.run_config(config, target=args.only, compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
                         device=args.device, **kwargs)
     return 0

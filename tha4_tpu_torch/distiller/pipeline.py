@@ -25,8 +25,9 @@ student.  More than one GPU waits for the data-parallel slice.
 
 from __future__ import annotations
 
+import logging
 import os
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,11 +38,14 @@ from tha4_tpu_torch.distiller import recipes, sample_output
 from tha4_tpu_torch.distiller.config import POSE_DATASET_FILE_NAME, DistillerConfig, copy_file
 from tha4_tpu_torch.distiller.pose_dataset import PoseSource
 from tha4_tpu_torch.models import siren
+from tha4_tpu_torch.ops import quant
 from tha4_tpu_torch.poser.modes import mode_07, mode_12
 from tha4_tpu_torch.tasks.workspace import Workspace, file_task
 from tha4_tpu_torch.training import checkpoint as ckpt
 from tha4_tpu_torch.training.schedules import TrainingPhases
 from tha4_tpu_torch.training.trainer import KEY_MODULE, Trainer, TrainerConfig
+
+logger = logging.getLogger(__name__)
 
 FACE_SAMPLES, FACE_SAMPLE_CELL = 8, 128  # 8 poses x (teacher crop | student)
 BODY_SAMPLES, BODY_SAMPLE_CELL = 4, 512  # 4 poses x (teacher | student | alpha | grid change)
@@ -51,7 +55,9 @@ class DistillationJobs:
     """Builds the two students' trainings, and the task DAG, for one config.
 
     ``student_mixed`` (the JAX package's default): the body student trains
-    in selective f32, bf16 matmul operands with f32 sums, sines and head."""
+    in selective f32, bf16 matmul operands with f32 sums, sines and head.
+    ``teacher_int8``: both teachers label with int8 convolutions (``ops.quant``,
+    Q1), calibrated once a run; the sample grids keep the f32 teacher."""
 
     def __init__(
         self,
@@ -67,6 +73,7 @@ class DistillationJobs:
         examples_per_checkpoint: int = recipes.EXAMPLES_PER_CHECKPOINT,
         examples_per_snapshot: int = 10_000,
         student_mixed: bool = True,
+        teacher_int8: bool = False,
     ):
         if config.num_gpus > 1:
             raise NotImplementedError(f"num_gpus = {config.num_gpus}: training on more than one GPU waits for the port's data-parallel slice")
@@ -82,6 +89,9 @@ class DistillationJobs:
         self.examples_per_checkpoint = examples_per_checkpoint
         self.examples_per_snapshot = examples_per_snapshot
         self.student_mixed = student_mixed
+        self.teacher_int8 = teacher_int8
+        self._teacher_quant_07 = None
+        self._teacher_quant_12 = None
         self.face_student_cfg = siren.SirenFaceMorpherConfig()
         self.body_student_cfg = siren.SirenMorpherConfig()
         self.pose_source = PoseSource(POSE_DATASET_FILE_NAME)
@@ -134,6 +144,35 @@ class DistillationJobs:
                 dtype, self.device)
         return self._body_teachers[dtype]
 
+    def teacher_quant_07(self) -> Optional[List[dict]]:
+        """The int8 mode_07 teacher's activation scales (``ops.quant``), or
+        None when int8 is off: calibrated once a run on the character image
+        and a pose-source batch, and written beside the training outputs."""
+        if not self.teacher_int8:
+            return None
+        if self._teacher_quant_07 is None:
+            self._teacher_quant_07 = self._calibrate("07", mode_07.compute_outputs, self.body_teacher())
+        return self._teacher_quant_07
+
+    def teacher_quant_12(self) -> Optional[List[dict]]:
+        if not self.teacher_int8:
+            return None
+        if self._teacher_quant_12 is None:
+            self._teacher_quant_12 = self._calibrate("12", mode_12.compute_outputs, self.face_teacher())
+        return self._teacher_quant_12
+
+    def _calibrate(self, tag: str, compute_outputs, teacher) -> List[dict]:
+        """8 pose-source poses from a generator seeded 0xCA11B, at batch 8,
+        in the compute dtype (``tha4_tpu/distiller/pipeline.py:152-166``);
+        the scales go to ``{prefix}/teacher_int8_scales_{tag}.json``."""
+        poses = self.pose_source.batch(torch.Generator().manual_seed(0xCA11B), 8).to(self.device, self.compute_dtype)
+        image = self.character_image().to(self.compute_dtype).expand(8, -1, -1, -1)
+        scales = quant.run_calibration(compute_outputs, teacher, image, poses)
+        logger.info("int8 teacher (mode_%s): calibrated %d convs", tag, len(scales))
+        os.makedirs(self.config.prefix, exist_ok=True)
+        quant.save_scales(os.path.join(self.config.prefix, f"teacher_int8_scales_{tag}.json"), scales)
+        return scales
+
     def checkpoint_boundaries(self, total: int):
         return [self.examples_per_checkpoint * (i + 1) for i in range(total // self.examples_per_checkpoint)]
 
@@ -143,7 +182,8 @@ class DistillationJobs:
         config = self.config
         device = self.device
         mask = torch.from_numpy(recipes.load_face_mask_crop(config.face_mask_image_file_name)).to(device)
-        step = recipes.make_face_distill_step(self.face_teacher(), self.character_image(), mask, self.compute_dtype)
+        step = recipes.make_face_distill_step(self.face_teacher(), self.character_image(), mask, self.compute_dtype,
+                                              self.teacher_quant_12())
         batch = config.face_morpher_batch_size
         cadence = config.face_morpher_num_training_examples_per_sample_output
 
@@ -204,7 +244,8 @@ class DistillationJobs:
         config = self.config
         phases = phases or recipes.default_body_phases()
         device = self.device
-        step = recipes.make_body_distill_step(self.body_teacher(), self.character_image(), self.compute_dtype, self.student_mixed)
+        step = recipes.make_body_distill_step(self.body_teacher(), self.character_image(), self.compute_dtype,
+                                              self.student_mixed, self.teacher_quant_07())
         batch = config.body_morpher_batch_size
         cadence = config.body_morpher_num_training_examples_per_sample_output
 

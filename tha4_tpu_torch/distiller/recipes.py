@@ -13,7 +13,8 @@
 Both use Adam(0.9, 0.999, eps 1e-8) with the lr set before every step
 (``torch.optim.Adam`` makes the update of optax ``scale_by_adam`` followed
 by p -= lr * u).  One step: the frozen teacher labels the batch (no
-gradient, the teacher's dtype), then one exact student update.  The JAX
+gradient, the teacher's dtype; int8 convolutions under ``teacher_quant``,
+the scales ``ops.quant`` calibrated), then one exact student update.  The JAX
 package can label K batches ahead in one teacher call (lookahead) to fill a
 chip at a small per-chip batch; on one card at batch 8 it uses K = 1, which
 is what runs here.
@@ -21,12 +22,13 @@ is what runs here.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from tha4_tpu_torch.models import siren
+from tha4_tpu_torch.ops import quant
 from tha4_tpu_torch.poser.modes import mode_07, mode_12
 from tha4_tpu_torch.training import losses
 from tha4_tpu_torch.training.schedules import TrainingPhase, TrainingPhases, step_lr_schedule
@@ -80,12 +82,16 @@ def load_face_mask_crop(face_mask_file_name: str) -> np.ndarray:
 
 
 @torch.no_grad()
-def face_teacher_targets(teacher: mode_12.FaceTeacher, image: torch.Tensor, poses: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def face_teacher_targets(teacher: mode_12.FaceTeacher, image: torch.Tensor, poses: torch.Tensor, dtype: torch.dtype,
+                         teacher_quant: Optional[List[dict]] = None) -> torch.Tensor:
     """The teacher's face morph over the student's square, in ``dtype``:
-    image (1, 512, 512, 4), poses (N, 45) -> (N, 128, 128, 4)."""
+    image (1, 512, 512, 4), poses (N, 45) -> (N, 128, 128, 4).
+    ``teacher_quant``: the int8 teacher's calibrated scales (``ops.quant``),
+    or None for the teacher in ``dtype``."""
     n = poses.shape[0]
     image_b = image.to(dtype).expand(n, *image.shape[1:])
-    face = mode_12.compute_outputs(teacher, image_b, poses.to(dtype))[mode_12.INDEX_FACE_MORPHED_IMAGE]
+    with quant.apply_scales(teacher_quant):
+        face = mode_12.compute_outputs(teacher, image_b, poses.to(dtype))[mode_12.INDEX_FACE_MORPHED_IMAGE]
     return face[:, FACE_CROP_Y0 : FACE_CROP_Y0 + FACE_CROP_SIZE, FACE_CROP_X0 : FACE_CROP_X0 + FACE_CROP_SIZE, :]
 
 
@@ -121,12 +127,14 @@ def student_update(student, optimizer: torch.optim.Optimizer, target, mask, pose
     return adam_step(optimizer, *face_loss(student, target, mask, poses, dtype), lr)
 
 
-def make_face_distill_step(teacher: mode_12.FaceTeacher, image: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype):
+def make_face_distill_step(teacher: mode_12.FaceTeacher, image: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype,
+                           teacher_quant: Optional[List[dict]] = None):
     """step(student, optimizer, poses, lr) -> named losses: the teacher's
-    labels for ``poses``, then one student update."""
+    labels for ``poses`` (int8 under ``teacher_quant``), then one student
+    update."""
 
     def step(student, optimizer, poses, lr):
-        target = face_teacher_targets(teacher, image, poses, dtype)
+        target = face_teacher_targets(teacher, image, poses, dtype, teacher_quant)
         return student_update(student, optimizer, target, mask, poses, lr, dtype)
 
     return step
@@ -138,12 +146,15 @@ def make_face_distill_step(teacher: mode_12.FaceTeacher, image: torch.Tensor, ma
 
 
 @torch.no_grad()
-def body_teacher_targets(teacher: mode_07.Teacher, image: torch.Tensor, poses: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+def body_teacher_targets(teacher: mode_07.Teacher, image: torch.Tensor, poses: torch.Tensor, dtype: torch.dtype,
+                         teacher_quant: Optional[List[dict]] = None) -> Tuple[torch.Tensor, ...]:
     """(posed, warped, grid change, face_morphed_full), each (N, 512, 512, *)
-    in ``dtype``, the teacher's: image (1, 512, 512, 4), poses (N, 45)."""
+    in ``dtype``, the teacher's (int8 under ``teacher_quant``): image (1,
+    512, 512, 4), poses (N, 45)."""
     n = poses.shape[0]
     image_b = image.to(dtype).expand(n, *image.shape[1:])
-    t = mode_07.compute_outputs(teacher, image_b, poses.to(dtype))
+    with quant.apply_scales(teacher_quant):
+        t = mode_07.compute_outputs(teacher, image_b, poses.to(dtype))
     return tuple(t[i] for i in (0, 2, 3, mode_07.INDEX_FACE_MORPHED_FULL))
 
 
@@ -178,13 +189,15 @@ def body_loss(student: siren.SirenMorpher, targets, poses: torch.Tensor, weights
     return body_loss_terms(outs, targets, weights)
 
 
-def make_body_distill_step(teacher: mode_07.Teacher, image: torch.Tensor, dtype: torch.dtype, mixed: bool = False):
+def make_body_distill_step(teacher: mode_07.Teacher, image: torch.Tensor, dtype: torch.dtype, mixed: bool = False,
+                           teacher_quant: Optional[List[dict]] = None):
     """step(student, optimizer, poses, lr, weights) -> named losses: the
-    teacher's labels for ``poses``, then one student update with the loss
-    weights ``{term: weight}`` of ``BODY_LOSS_TERMS``."""
+    teacher's labels for ``poses`` (int8 under ``teacher_quant``), then one
+    student update with the loss weights ``{term: weight}`` of
+    ``BODY_LOSS_TERMS``."""
 
     def step(student, optimizer, poses, lr, weights):
-        targets = body_teacher_targets(teacher, image, poses, dtype)
+        targets = body_teacher_targets(teacher, image, poses, dtype, teacher_quant)
         optimizer.zero_grad(set_to_none=True)
         return adam_step(optimizer, *body_loss(student, targets, poses, weights, dtype, mixed), lr)
 

@@ -31,6 +31,11 @@ resample sits between the SiLU and the conv), the first conv and the
 attention's 1x1s stay cuDNN's.  A shipped upscaler call launches K6 55
 times, a body morpher call 47 times.
 
+Under an int8 scope (``ops.quant``: calibration or ``apply_scales``), and
+only there, the ResBlocks and ``last`` take the JAX package's unfused order
+instead, so that every eligible conv reaches the ``ops.nn.Conv2d`` hook in
+the JAX teacher's order; K6 is not launched then.
+
 The JAX module's lane-packed flow (``_apply_packed_flow``,
 ``_fused_resblock*``, the ``probe`` cut) is TPU 128-lane packing and is left
 behind on purpose: channels-last is the GPU's form of the same layout.
@@ -46,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tha4_tpu_torch.ops import cuda_conv
+from tha4_tpu_torch.ops import cuda_conv, quant
 from tha4_tpu_torch.ops import nn as tnn
 from tha4_tpu_torch.ops import wide
 from tha4_tpu_torch.ops.resize import downsample_avg_2x, upsample_nearest_2x
@@ -154,6 +159,8 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond0: torch.Tensor, cond1: torch.Tensor, condition_bias: float) -> torch.Tensor:
         resample = {"same": lambda a: a, "up": upsample_nearest_2x, "down": downsample_avg_2x}[self.sampling]
+        if quant.current() is not None:
+            return self._forward_unfused(resample, x, cond0, cond1, condition_bias)
         # A cuDNN conv's output (the first conv of an image that lies NCHW, an
         # up / down block's conv0) can be an NHWC view of NCHW memory; K6 and
         # its fold read NHWC memory.  Free where x already is NHWC.
@@ -175,6 +182,22 @@ class ResBlock(nn.Module):
         if bias is None:
             bias = wide(self.conv1.bias) + wide(self.skip.bias)
         return _affine_conv3(h, self.conv1, scale, shift, skip, skip_w, bias)
+
+    def _forward_unfused(self, resample, x, cond0, cond1, condition_bias: float) -> torch.Tensor:
+        """The JAX package's unfused order (``tha4_tpu/models/unet.py:345-368``),
+        which an int8 scope takes: its eligible convs (conv0, conv1, then the
+        1x1 skip, each with its own bias) reach the ``ops.nn.Conv2d`` hook in
+        the order the JAX teacher visits them, and none is fused into K6."""
+        h = tnn.conv_nhwc(self.conv0, resample(F.silu(self.norm0(x))))
+        h = self.norm1(h)
+        for layers, cond in ((self.cond0_layers, cond0), (self.cond1_layers, cond1)):
+            scale, shift = layers(cond).chunk(2, dim=-1)
+            h = h * (condition_bias + scale[:, None, None, :]) + shift[:, None, None, :]
+        h = tnn.conv_nhwc(self.conv1, F.silu(h))
+        skip = resample(x)
+        if self.skip is not None:
+            skip = tnn.conv_nhwc(self.skip, skip)
+        return skip + h
 
 
 class AttentionBlock(nn.Module):
@@ -350,5 +373,7 @@ class Unet(nn.Module):
         assert not hs
 
         norm, _, last_conv = self.last
+        if quant.current() is not None:  # the unfused order, as the ResBlocks
+            return tnn.conv_nhwc(last_conv, F.silu(norm(h)))
         h = h.contiguous()
         return _affine_conv3(h, last_conv, *_fold(norm, h))

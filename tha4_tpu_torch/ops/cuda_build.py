@@ -71,6 +71,9 @@ _SIGNATURES = {
     # eps, workspace, scale, shift, stream
     "tha4_group_norm_fold": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _I,
                              ctypes.c_float, ctypes.c_float, _P, _P, _P, _P],
+    # x, w8, w_scale, bias, out, n, h, w, cin, cout, k, inv, xs, is_bf16,
+    # stream
+    "tha4_int8_conv_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
 }
 
 

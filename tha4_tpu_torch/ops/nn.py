@@ -26,14 +26,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tha4_tpu_torch.ops import wide
+from tha4_tpu_torch.ops import quant, wide
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in its input's dtype, casting weight and
-    bias as ``tha4_tpu/ops/nn.py:conv2d`` does (free once they already are)."""
+    bias as ``tha4_tpu/ops/nn.py:conv2d`` does (free once they already are).
+
+    The port's one conv chokepoint, so the int8 teacher's hook
+    (``tha4_tpu/ops/nn.py:156-185``): under ``quant.calibrate()`` an eligible
+    conv records its input, under ``quant.apply_scales(...)`` it runs Q1
+    (``quant.conv_hook``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qctx = quant.current()
+        if qctx is not None and quant.conv_eligible(self):
+            out = quant.conv_hook(qctx, self, x)
+            if out is not None:
+                return out
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
 

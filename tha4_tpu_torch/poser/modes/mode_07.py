@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from tha4_tpu_torch.models import body_morpher, eyebrow, face_morpher, unet, upscaler
+from tha4_tpu_torch.ops import quant
 from tha4_tpu_torch.ops.resize import resize_bilinear
 from tha4_tpu_torch.poser.general_poser import GeneralPoser
 from tha4_tpu_torch.poser.modes.pose_parameters import NUM_EYEBROW_PARAMS, NUM_FACE_PARAMS
@@ -109,11 +110,16 @@ class Teacher(nn.Module):
         convolution weights stored in ``dtype`` once instead of cast per
         call.  Norm affines and linears stay f32, as in the JAX package (a
         linear casts itself to its input's dtype).  The U-Nets keep their K6
-        weights in its layout (``Unet.store_w9``)."""
+        weights in its layout (``Unet.store_w9``), and every conv that the
+        int8 teacher quantizes keeps its int8 weight, quantized from f32
+        before the cast, as the JAX teacher quantizes its f32 params
+        (``ops.quant.store_int8``)."""
         self.requires_grad_(False).eval().to(device)
+        quant.store_int8(self)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                m.to(dtype)
+                for p in m.parameters(recurse=False):  # not the buffers: the int8 scales stay f32
+                    p.data = p.data.to(dtype)
         for m in self.modules():
             if isinstance(m, unet.Unet):
                 m.store_w9()
