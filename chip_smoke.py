@@ -128,12 +128,17 @@ Phases, one or more lines each:
     1 K2 a frame), f32 equal bit for bit to a poser from the last
     checkpoints' ``.npz`` files, bf16 >= 28 dB; ms/step through the DAG,
     the sample grids' and renders' ms and an export's;
-15. the verification slice: Q1 (``int8_conv``, the int8 teacher's conv)
-    against its plain version bit for bit at every (dtype, signature) of
-    the full-width mode_07 at B = 8 and of mode_12, bf16 and f32, timed at
-    the costliest beside ``torch._int_mm`` on an im2col and cuDNN; the int8
+15. the verification slice (``python3 chip_smoke.py --phase int8`` runs it
+    alone after phases 1-2, making its own preconditions): Q1
+    (``int8_conv``, the int8 teacher's conv) against its plain version bit
+    for bit, and two calls against each other, at every (dtype, signature)
+    of the full-width mode_07 at B = 8 and of mode_12, bf16 and f32, each
+    timed beside cuDNN's conv of the same shape and Q1's bound, with its
+    convs a call and Q1's total a teacher call; the costliest also beside
+    ``torch._int_mm`` on an im2col and the plain version; the int8
     teacher's body labels (outputs 0, 2, 3, 5) against bf16 and f32 (label
-    PSNR, grid-change L1) and its time a call against bf16;
+    PSNR, grid-change L1) and its time a call against bf16, split into Q1
+    and the rest;
     ``pipeline.run_config`` with ``teacher_int8`` (``tha4-torch-distill
     --teacher-int8``), 8 steps a student, beside the same run without it:
     Q1 launched once per eligible conv per teacher call and K6 never, both
@@ -2301,12 +2306,30 @@ def _q1_library_ms(torch, x, w8, x_scale: float, k: int) -> dict:
             "library_with_unfold_ms": _device_ms(lambda: torch._int_mm(im2col(), b), reps=20, warmup=2)}
 
 
-def _check_q1_at_the_path(torch, fn, teacher, images, poses, scales, errs: dict, costliest: dict) -> None:
+def _q1_time_signature(torch, x, layout, scale: float, plain_args: tuple) -> dict:
+    """One (dtype, signature)'s timing on its path input: Q1, and cuDNN's
+    conv of the same shape in x's dtype (channels last, no bias, as at the
+    costliest), 10 calls back to back each, beside Q1's bound."""
+    from tha4_tpu_torch.ops import cuda_int8_conv
+
+    _, w8, w_s, _, pad, bias = plain_args
+    k = w8.shape[0]
+    ms = _device_ms(lambda: cuda_int8_conv.int8_conv(x, layout, w_s, scale, pad, bias), reps=10, warmup=2)
+    xc, wc = x.permute(0, 3, 1, 2), w8.permute(3, 2, 0, 1).to(x.dtype)
+    cudnn_ms = _device_ms(lambda: torch.nn.functional.conv2d(xc, wc, None, padding=pad), reps=10, warmup=2)
+    bound = _q1_bound(x, w8.shape[3], k)
+    return {"ms": ms, "cudnn_ms": cudnn_ms, **bound, "bound_share": bound["bound_ms"] / ms}
+
+
+def _check_q1_at_the_path(torch, fn, teacher, images, poses, scales, errs: dict, costliest: dict, table: dict,
+                          model: str) -> None:
     """One int8 call of ``fn`` with every eligible conv's Q1 output held
     against its plain version on the same card inputs, bit for bit, at each
-    (dtype, signature) not yet in ``errs`` (which records the error); the
-    inputs of the costliest conv of each dtype (most multiply-adds) are
-    kept in ``costliest`` for its timing."""
+    (dtype, signature) not yet in ``errs`` (which records the error), and
+    each such pair timed (``_q1_time_signature``) into ``table``, which also
+    counts the convs of each pair a call of ``model``; the inputs of the
+    costliest conv of each dtype (most multiply-adds) are kept in
+    ``costliest`` for its detailed timing."""
     from tha4_tpu_torch.ops import cuda_int8_conv, quant
 
     real = quant.conv_hook
@@ -2315,20 +2338,32 @@ def _check_q1_at_the_path(torch, fn, teacher, images, poses, scales, errs: dict,
         out = real(ctx, conv, x)
         sig = quant.nchw_signature(x, conv)
         key = ("bf16" if x.dtype == torch.bfloat16 else "f32", json.dumps(sig))
+        row = table.setdefault(key, {"dtype": key[0], "signature": sig, "convs": {}})
+        row["convs"][model] = row["convs"].get(model, 0) + 1
         if key not in errs:
             xs, k = x.permute(0, 2, 3, 1), conv.kernel_size[0]
-            w8 = cuda_int8_conv._hwio(conv.int8_layout, xs.shape[3])
-            bias = None if conv.bias is None else conv.bias.to(x.dtype)
+            layout, w_s = quant._int8_weights(conv)
+            w8 = cuda_int8_conv._hwio(layout)
+            bias = quant._int8_bias(conv, x.dtype)
             scale = ctx.scales[ctx.idx - 1]["scale"]
-            plain = cuda_int8_conv.int8_conv_plain(xs, w8, conv.int8_scale, scale, conv.padding[0], bias)
+            plain_args = (xs, w8, w_s, scale, conv.padding[0], bias)
+            plain = cuda_int8_conv.int8_conv_plain(*plain_args)
             errs[key] = float((out.permute(0, 2, 3, 1).float() - plain.float()).abs().max())
-            if not torch.equal(out.permute(0, 2, 3, 1), plain):
-                raise AssertionError(f"Q1 {key}: differs from its plain version by {errs[key]}")
+            if not torch.equal(out.permute(0, 2, 3, 1), plain) or not torch.equal(real(ctx_again(ctx), conv, x), out):
+                raise AssertionError(f"Q1 {key}: differs from its plain version by {errs[key]}, or from itself")
+            row.update(_q1_time_signature(torch, xs, layout, scale, plain_args), batch=xs.shape[0])
             macs = xs.shape[0] * xs.shape[1] * xs.shape[2] * w8.shape[3] * k * k * xs.shape[3]
             if macs > costliest.get(key[0], {}).get("macs", 0):
                 costliest[key[0]] = {"signature": key[1], "macs": macs, "x": xs.contiguous(), "w8": w8,
-                                     "args": (conv.int8_layout, conv.int8_scale, scale, conv.padding[0], bias)}
+                                     "args": (layout, w_s, scale, conv.padding[0], bias)}
         return out
+
+    def ctx_again(ctx):
+        """The scope as it stood at this conv: a second call of the hook
+        takes the same scale without moving the scope on."""
+        again = quant._Apply(ctx.scales)
+        again.idx = ctx.idx - 1
+        return again
 
     quant.conv_hook = checked
     try:
@@ -2377,31 +2412,52 @@ def phase_int8(torch, workdir: str, teacher_params, image) -> dict:
     from tha4_tpu_torch.distiller import pipeline, recipes
     from tha4_tpu_torch.distiller.config import DistillerConfig
     from tha4_tpu_torch.distiller.pose_dataset import sample_poses
-    from tha4_tpu_torch.ops import cuda_conv, cuda_int8_conv, cuda_poly_sin, cuda_siren, cuda_warp, quant
+    from tha4_tpu_torch.ops import cuda_build, cuda_conv, cuda_int8_conv, cuda_poly_sin, cuda_siren, cuda_warp, quant
     from tha4_tpu_torch.poser.modes import mode_07, mode_12
-    from tha4_tpu_torch.utils import fidelity
+    from tha4_tpu_torch.utils import fidelity, precision
 
+    # The phase's own preconditions, whatever ran before it: the kernels
+    # built, full-f32 products (no TF32 in cuBLAS or cuDNN) and cuDNN's
+    # default algorithms.
     t_phase = time.perf_counter()
+    cuda_build.library()
+    precision.set_full_f32()
+    torch.backends.cudnn.deterministic = False
     results = {}
     cal_poses = sample_poses(torch.Generator().manual_seed(CAL_SEED), TRAIN_BATCH).cuda()
     poses = sample_poses(torch.Generator().manual_seed(SEED + 51), TRAIN_BATCH).cuda()
 
     # (a) Q1 at every eligible signature, bf16 and f32, mode_07 at B = 8 and mode_12.
-    errs, costliest, teachers, scales = {}, {}, {}, {}
+    errs, costliest, teachers, scales, table = {}, {}, {}, {}, {}
     for tag, dtype in [("bf16", torch.bfloat16), ("f32", torch.float32)]:
         teachers[tag] = mode_07.Teacher.from_params(teacher_params).freeze(dtype, "cuda")
         images = image.to(dtype).expand(TRAIN_BATCH, -1, -1, -1)
         scales[tag] = quant.run_calibration(mode_07.compute_outputs, teachers[tag], images, cal_poses.to(dtype))
         _check_q1_at_the_path(torch, mode_07.compute_outputs, teachers[tag], images, poses.to(dtype), scales[tag], errs,
-                              costliest)
+                              costliest, table, "mode_07")
         face = mode_12.FaceTeacher.from_params({k: teacher_params[k] for k in mode_12.NETWORK_KEYS}).freeze(dtype, "cuda")
         s12 = quant.run_calibration(mode_12.compute_outputs, face, images, cal_poses.to(dtype))
-        _check_q1_at_the_path(torch, mode_12.compute_outputs, face, images, poses.to(dtype), s12, errs, costliest)
+        _check_q1_at_the_path(torch, mode_12.compute_outputs, face, images, poses.to(dtype), s12, errs, costliest, table,
+                              "mode_12")
         results[f"convs_07_{tag}"], results[f"convs_12_{tag}"] = len(scales[tag]), len(s12)
         del face
-    print(f"Q1: equal to its plain version bit for bit at all {len(errs)} (dtype, signature) pairs of the full-width "
-          f"mode_07 at B = {TRAIN_BATCH} ({results['convs_07_bf16']} eligible convs a call) and mode_12 "
-          f"({results['convs_12_bf16']}), bf16 and f32")
+    print(f"Q1: equal to its plain version bit for bit, and two calls to each other, at all {len(errs)} (dtype, "
+          f"signature) pairs of the full-width mode_07 at B = {TRAIN_BATCH} ({results['convs_07_bf16']} eligible convs a "
+          f"call) and mode_12 ({results['convs_12_bf16']}), bf16 and f32")
+    # Every pair timed: Q1 beside cuDNN's conv and the bound, and Q1's total
+    # a teacher call (the convs of the pair a call x its time).
+    signatures = sorted(table.values(), key=lambda r: (r["dtype"], -r["macs"]))
+    totals = {}
+    for r in signatures:
+        print(f"Q1 {r['dtype']:4s} {json.dumps(r['signature']):42s} x{json.dumps(r['convs']):30s} {r['ms']:.4f} ms, "
+              f"cuDNN {r['cudnn_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), share {r['bound_share']:.3f}")
+        for model, n in r["convs"].items():
+            for key, v in (("ms", r["ms"]), ("cudnn_ms", r["cudnn_ms"]), ("bound_ms", r["bound_ms"])):
+                name = f"{model}_{r['dtype']}"
+                totals.setdefault(name, {}).setdefault(key, 0.0)
+                totals[name][key] += n * v
+    results.update(signatures=[{k: v for k, v in r.items()} for r in signatures], q1_per_call=totals)
+    print(f"Q1 a teacher call at B = {TRAIN_BATCH} (the convs x their times): {totals}")
 
     # Q1 timed at the costliest signature (most multiply-adds) at B = 8.
     timed = {}
@@ -2441,8 +2497,10 @@ def phase_int8(torch, workdir: str, teacher_params, image) -> dict:
                              iters=5, warmup=1),
             "bf16": _time_ms(lambda: recipes.body_teacher_targets(teachers["bf16"], image, poses, torch.bfloat16), iters=5, warmup=1),
         }
+    q1_ms = totals["mode_07_bf16"]["ms"]
+    teacher_ms["int8_q1"], teacher_ms["int8_glue"] = q1_ms, teacher_ms["int8"] - q1_ms
     print(f"int8 teacher (bf16 activations) body labels at B = {TRAIN_BATCH}: {labels}; a call {teacher_ms['int8']:.2f} ms "
-          f"against bf16 {teacher_ms['bf16']:.2f} ms")
+          f"(Q1 {q1_ms:.2f}, the rest {teacher_ms['int8_glue']:.2f}) against bf16 {teacher_ms['bf16']:.2f} ms")
     del teachers, int8, bf16, f32
     torch.cuda.empty_cache()
 
@@ -2557,17 +2615,48 @@ def phase_int8(torch, workdir: str, teacher_params, image) -> dict:
     return results
 
 
+def _body_inputs(torch, workdir: str) -> tuple:
+    """The distiller config (synthetic character and mask), the seeded
+    full-width random mode_07 and the character image on the card."""
+    from tha4_tpu_torch.charmodel.synthetic import random_teacher_07, write_distiller_inputs
+    from tha4_tpu_torch.core import imagecodec
+    from tha4_tpu_torch.distiller.config import DistillerConfig
+
+    config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, "distill"), seed=SEED, batch_size=TRAIN_BATCH))
+    teacher_params = random_teacher_07(torch.Generator().manual_seed(SEED + 8))
+    image = torch.from_numpy(imagecodec.load_image_hwc(config.character_image_file_name))[None].cuda()
+    return config, teacher_params, image
+
+
+def main_int8_alone(torch) -> int:
+    """``--phase int8``: phase 15 alone, after the device and the build, on
+    the inputs the whole run gives it; for a quick check of the
+    verification slice.  Its line of results is printed as JSON."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_body_") as workdir:
+        _, teacher_params, image = _body_inputs(torch, workdir)
+        int8 = phase_int8(torch, workdir, teacher_params, image)
+    print(json.dumps({k: int8[k] for k in ("timed", "q1_per_call", "teacher_ms", "seconds")}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
     # Fail before printing anything where the repository is missing.
     import tha4_tpu_torch  # noqa: F401
 
+    from tha4_tpu_torch.utils import precision
+
     card = phase_device(torch)
     # f32 means full-f32 products on both sides of every comparison.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    precision.set_full_f32()
     build_s = phase_build()
+    if sys.argv[1:] == ["--phase", "int8"]:
+        return main_int8_alone(torch)
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, or --phase int8")
 
     from tha4_tpu_torch.models import siren
 
@@ -2588,13 +2677,7 @@ def main() -> int:
         k5 = phase_poly_sin(torch)
     k6 = phase_k6(torch)  # grad mode on: it also checks that K6 refuses an input that needs a gradient
     with tempfile.TemporaryDirectory(prefix="chip_smoke_body_") as workdir:
-        from tha4_tpu_torch.charmodel.synthetic import random_teacher_07, write_distiller_inputs
-        from tha4_tpu_torch.core import imagecodec
-        from tha4_tpu_torch.distiller.config import DistillerConfig
-
-        config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, "distill"), seed=SEED, batch_size=TRAIN_BATCH))
-        teacher_params = random_teacher_07(torch.Generator().manual_seed(SEED + 8))
-        image = torch.from_numpy(imagecodec.load_image_hwc(config.character_image_file_name))[None].cuda()
+        config, teacher_params, image = _body_inputs(torch, workdir)
         poser = phase_teacher_poser(torch, workdir, teacher_params)
         web_teacher = phase_web_teacher(torch, workdir)
         body_teacher = phase_body_teacher(torch, teacher_params, image)
@@ -2784,13 +2867,17 @@ def main() -> int:
                 "bound_ms_f32": int8["timed"]["f32"]["bound_ms"], "library_ms_f32": int8["timed"]["f32"]["library_ms"],
                 "cudnn_f32_ms": int8["timed"]["f32"]["cudnn_ms"], "signature_f32": int8["timed"]["f32"]["signature"],
                 "convs_per_call": {k: v for k, v in int8.items() if k.startswith("convs_")},
+                "q1_per_call": int8["q1_per_call"], "signatures": int8["signatures"],
                 "timed": "device time, 20 calls back to back, at the costliest eligible conv (most multiply-adds) of the "
                          "full-width mode_07 at B = 8, bf16 x; *_f32 with f32 x; plain: int8_conv_plain (an f64 cuDNN "
                          "conv of the integers), one event pair a call; library: torch._int_mm on the F.unfold im2col "
                          "alone (library_with_unfold_ms: with the quantize, unfold and cast); cudnn_*_ms: F.conv2d of the "
                          "same shape in that dtype; bound: bytes over 3.35 TB/s or 2 x multiply-adds over the 1979 TOP/s "
                          "int8 peak; max_abs_err: over every (dtype, signature) of mode_07 and mode_12; launches: the "
-                         "--teacher-int8 distillation run (8 face and 8 body steps)",
+                         "--teacher-int8 distillation run (8 face and 8 body steps); signatures: every (dtype, signature) "
+                         "of mode_07 at B = 8 and mode_12, Q1 and "
+                         "cuDNN's conv 10 calls back to back each, its convs a call; q1_per_call: those convs x their "
+                         "times, per model and dtype",
             },
             {
                 **{k: v for k, v in k6_entry.items() if k in KERNEL_KEYS}, "name": "fused_packed_conv3 (counterpart: affine_silu_conv3)",

@@ -28,8 +28,9 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False  # the plain versions' convolutions in full f32
+    from tha4_tpu_torch.utils import precision
+
+    precision.set_full_f32()  # the plain versions' matmuls and convolutions in full f32
     return torch.device("cuda")
 
 
@@ -571,17 +572,25 @@ def _q1_case(card, dtype, n, h, w, cin, cout, k, seed):
     scale = float(x.float().abs().max()) * 1.1 / 127.0
     layout = cuda_int8_conv.weight_layout(w8)
     ref = cuda_int8_conv.int8_conv(x, layout, w_s, scale, k // 2, bias)  # the plain version, on the CPU
-    args = (x.to(card), layout.to(card), w_s.to(card), scale, k // 2, bias.to(card))
+    args = (x.to(card), layout._replace(tensor=layout.tensor.to(card)), w_s.to(card), scale, k // 2, bias.to(card))
     return args, ref
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,h,w,cin,cout,k", [(2, 17, 23, 64, 96, 3), (1, 24, 24, 59, 32, 3), (3, 9, 31, 48, 16, 3),
-                                              (2, 16, 16, 128, 200, 1), (1, 13, 7, 16, 70, 1)])
+                                              (2, 16, 16, 128, 200, 1), (1, 13, 7, 16, 70, 1),
+                                              (2, 19, 70, 4, 32, 3), (1, 24, 24, 32, 4, 3), (8, 16, 16, 512, 256, 3),
+                                              (8, 72, 130, 96, 128, 3), (1, 512, 512, 64, 32, 1), (2, 80, 70, 64, 128, 1),
+                                              (8, 16, 16, 256, 768, 1), (8, 32, 32, 512, 256, 1), (2, 17, 70, 59, 70, 3),
+                                              (1, 40, 130, 64, 32, 1)])
 def test_q1_equals_its_plain_version_bit_for_bit(card, dtype, n, h, w, cin, cout, k):
     """Exact integer sums on both sides, so the same bits: on ragged pixel
-    counts, Cin not a multiple of 16 or 32 (59: the pose-concatenated
-    bottleneck), Cout past and under one 64-channel tile, 3x3 and 1x1."""
+    counts and widths that are not a multiple of the 64-column tile (70,
+    130), Cin 4 and not a multiple of 16 or 32 (59: the pose-concatenated
+    bottleneck), Cout 4, 70 and past one 128-channel block (200, 256, 768),
+    3x3 and 1x1 (at 512^2, 64 -> 32, the upscaler's skip; the teachers'
+    16^2 and 32^2 1x1 convs); the K chunks split among blocks (16^2, Cin
+    512, and every small grid) and not (130 wide, three chunks)."""
     from tha4_tpu_torch.ops import cuda_int8_conv
 
     args, ref = _q1_case(card, dtype, n, h, w, cin, cout, k, seed=cin + cout)
@@ -590,8 +599,9 @@ def test_q1_equals_its_plain_version_bit_for_bit(card, dtype, n, h, w, cin, cout
     torch.cuda.synchronize()
     assert cuda_int8_conv.int8_conv.launches == before + 1
     assert out.dtype == dtype and torch.equal(out.cpu(), ref)
-    plain = cuda_int8_conv.int8_conv_plain(args[0], cuda_int8_conv._hwio(args[1], cin), *args[2:])
+    plain = cuda_int8_conv.int8_conv_plain(args[0], cuda_int8_conv._hwio(args[1]), *args[2:])
     assert torch.equal(out, plain)  # the plain version on the card too
+    assert torch.equal(cuda_int8_conv.int8_conv(*args), out)  # two calls, the same bits
 
 
 def test_q1_raises_on_what_it_does_not_take(card):
@@ -605,7 +615,9 @@ def test_q1_raises_on_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="bias"):
         cuda_int8_conv.int8_conv(x, layout, w_s, scale, pad, bias.double())
     with pytest.raises(ValueError, match="x's device"):
-        cuda_int8_conv.int8_conv(x, layout.cpu(), w_s, scale, pad, bias)
+        cuda_int8_conv.int8_conv(x, layout._replace(tensor=layout.tensor.cpu()), w_s, scale, pad, bias)
+    with pytest.raises(ValueError, match="w_scale"):  # 16 of the layout's 32 output channels
+        cuda_int8_conv.int8_conv(x, layout, w_s[:16].contiguous(), scale, pad, bias[:16].contiguous())
 
 
 def test_resblock_under_a_scope_launches_q1_not_k6(card):

@@ -40,6 +40,7 @@ from tha4_tpu_torch.tasks.workspace import Workspace
 from tha4_tpu_torch.training import checkpoint as ckpt
 from tha4_tpu_torch.training import tensorboard
 from tha4_tpu_torch.training import trainer
+from tha4_tpu_torch.utils import precision
 
 torch.set_num_threads(2)
 
@@ -307,6 +308,22 @@ def test_run_config_targets(dag, monkeypatch):
     for target in ("body", "face", "all"):
         run_config(config, target=target, device="cpu")
     assert ran == [f"{config.body_morpher_prefix()}/train", f"{config.face_morpher_prefix()}/train", f"{config.prefix}/all"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_run_config_f32_turns_tf32_off(tmp_path, monkeypatch, dtype):
+    """``tha4-torch-distill --f32`` (``run_config`` with an f32 compute
+    dtype) turns TF32 off in cuBLAS's matmuls and cuDNN's convolutions, as
+    the posers do; bf16 leaves both flags as they were."""
+    monkeypatch.setattr(DistillationJobs, "define_tasks", lambda self, ws: None)
+    monkeypatch.setattr(Workspace, "run", lambda self, name: None)
+    config = DistillerConfig.load(write_distiller_inputs(str(tmp_path), seed=12, batch_size=2))
+    with precision.restored():
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        run_config(config, compute_dtype=dtype, device="cpu")
+        flags = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    assert flags == (("highest", False) if dtype == torch.float32 else ("high", True))
 
 
 # -- a full-width export, posed by the JAX package ---------------------------

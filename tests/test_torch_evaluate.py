@@ -12,6 +12,7 @@ from tests.test_torch_mode14 import _port_cfgs
 from tha4_tpu.apps import evaluate as jevaluate
 from tha4_tpu_torch.apps import evaluate
 from tha4_tpu_torch.charmodel.synthetic import write_random_character_model
+from tha4_tpu_torch.poser.modes import mode_14
 
 
 @pytest.fixture(scope="module")
@@ -36,8 +37,10 @@ def test_eval_against_matches_jax(models, capsys):
 
 
 def test_eval_bf16_and_matmul_precision(models, capsys, monkeypatch):
-    """--dtype bf16 poses the first model in bf16; --matmul-precision is
-    set for the call (JAX's words mapped onto torch's) and restored."""
+    """--dtype bf16 poses the first model in bf16; --matmul-precision holds
+    for its poser's calls (JAX's words mapped onto torch's), the f32 model
+    it is compared with turns TF32 off, and the command restores what it
+    found."""
     before, calls = torch.get_float32_matmul_precision(), []
     real = torch.set_float32_matmul_precision
     monkeypatch.setattr(torch, "set_float32_matmul_precision", lambda p: calls.append(p) or real(p))
@@ -45,7 +48,31 @@ def test_eval_bf16_and_matmul_precision(models, capsys, monkeypatch):
                                       "--matmul-precision", "default", "--device", "cpu"], capsys)
     assert rc == 0 and ours["dtype"] == "bf16"
     assert 20.0 < ours["psnr_min"] < float("inf")  # bf16 against f32 of the same model
-    assert calls == ["medium", before]
+    # The f32 poser's full f32, the bf16 poser's one call at medium, the command's restore.
+    assert calls == ["highest", "medium", "highest", before]
+
+
+@pytest.mark.parametrize("word,torch_word", [("default", "medium"), ("high", "high"), ("highest", "highest")])
+def test_eval_matmul_precision_reaches_the_poser(models, capsys, monkeypatch, word, torch_word):
+    """--matmul-precision is the precision in force while ``compare_posers``
+    runs the evaluated poser, an f32 one too (its default would be full
+    f32); the compared poser without one runs at full f32; afterwards
+    ``torch.get_float32_matmul_precision()`` still answers, with what it
+    said before, and cuDNN's TF32 flag is as it was."""
+    seen = []
+    real = mode_14.compute_outputs
+
+    def recording(face_cfg, *args):
+        seen.append(torch.get_float32_matmul_precision())
+        return real(face_cfg, *args)
+
+    monkeypatch.setattr(mode_14, "compute_outputs", recording)
+    before, cudnn = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    rc, _ = _stats(evaluate.main, ["--model", models[0], "--against", models[1], "--poses", "2",
+                                   "--matmul-precision", word, "--device", "cpu"], capsys)
+    assert rc == 0
+    assert seen == [torch_word, "highest"] * 2  # poser a, then b, for each pose
+    assert torch.get_float32_matmul_precision() == before and torch.backends.cudnn.allow_tf32 == cudnn
 
 
 def test_eval_without_the_reference_exits_2(models, capsys, tmp_path):

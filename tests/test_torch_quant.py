@@ -95,8 +95,66 @@ def test_quantize_weight_equals_jax_bit_for_bit(rng, dtype):
 def test_weight_layout_round_trips(rng):
     w8 = torch.from_numpy(rng.integers(-127, 128, (3, 3, 40, 24)).astype(np.int8))
     layout = cuda_int8_conv.weight_layout(w8)
-    assert tuple(layout.shape) == (9, 24, 64) and not layout[:, :, 40:].any()
-    assert torch.equal(cuda_int8_conv._hwio(layout, 40), w8)
+    # One block of 32 output channels, two chunks of 32 input channels.
+    t = layout.tensor
+    assert tuple(t.shape) == (1, 2, 9, 2, 32, 16) and (layout.cin, layout.cout) == (40, 24)
+    assert not t[:, 1, :, 0, :, 8:].any() and not t[:, 1, :, 1].any() and not t[..., 24:, :].any()
+    assert torch.equal(cuda_int8_conv._hwio(layout), w8)
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("cin,cout", [(4, 4), (59, 70), (64, 256), (40, 200), (512, 33)])
+def test_weight_layout_puts_each_weight_where_q1_reads_it(rng, k, cin, cout):
+    """Ragged Cin and Cout: weight (ky, kx, ci, co) lies at [co // BN, ci //
+    32, ky * k + kx, ci % 32 // 16, co % BN, ci % 16] of the layout, the
+    padding is zero, and ``_hwio`` inverts it."""
+    w8 = torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8))
+    layout = cuda_int8_conv.weight_layout(w8)
+    bn = cuda_int8_conv.layout_block(cout)
+    assert bn == (32 if cout <= 32 else 64 if cout <= 64 else 128)
+    t = layout.tensor
+    assert tuple(t.shape) == (-(-cout // bn), -(-cin // 32), k * k, 2, bn, 16) and t.is_contiguous()
+    assert (layout.cin, layout.cout) == (cin, cout)
+    ky, kx, ci, co = np.meshgrid(*(np.arange(d) for d in (k, k, cin, cout)), indexing="ij")
+    got = t.numpy()[co // bn, ci // 32, ky * k + kx, ci % 32 // 16, co % bn, ci % 16]
+    np.testing.assert_array_equal(got, w8.numpy())
+    assert int(np.abs(t.numpy().astype(np.int64)).sum()) == int(np.abs(w8.numpy().astype(np.int64)).sum())
+    assert torch.equal(cuda_int8_conv._hwio(layout), w8)
+
+
+def test_store_int8_stores_each_layout_and_bias_once(monkeypatch):
+    """``store_int8`` makes each eligible conv's layout once (a second call
+    keeps it) and its bias in the compute dtype once; the hook hands Q1
+    that bias and a channels-last x as it lies, without a copy."""
+    gen = torch.Generator().manual_seed(5)
+    block = nn.Sequential(tnn.conv3(24, 40, bias=True), tnn.Conv2d(40, 16, 1, bias=False), tnn.conv3(4, 8, bias=True))
+    for m in block.modules():
+        if isinstance(m, nn.Conv2d):
+            m.weight.data = torch.randn(m.weight.shape, generator=gen) * 0.1
+    made = []
+    real = cuda_int8_conv.weight_layout
+    monkeypatch.setattr(cuda_int8_conv, "weight_layout", lambda w8: made.append(1) or real(w8))
+    quant.store_int8(block, torch.bfloat16)
+    quant.store_int8(block, torch.bfloat16)
+    conv3, conv1, head = block
+    assert len(made) == 2 and not hasattr(head, "int8_layout")
+    assert conv3.int8_bias.dtype == torch.bfloat16 and torch.equal(conv3.int8_bias, conv3.bias.to(torch.bfloat16))
+    assert getattr(conv1, "int8_bias", None) is None  # no bias, none stored
+    seen = []
+    real_conv = cuda_int8_conv.int8_conv
+
+    def recording(x, layout, w_s, scale, pad, bias):
+        seen.append((x, bias))
+        return real_conv(x, layout, w_s, scale, pad, bias)
+
+    monkeypatch.setattr(cuda_int8_conv, "int8_conv", recording)
+    x = torch.randn((2, 24, 6, 5), generator=gen).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    sig = quant.nchw_signature(x, conv3)
+    with quant.apply_scales([{"sig": [list(sig[0]), list(sig[1]), sig[2]], "scale": 0.05}]):
+        out = conv3(x)
+    [(xs, bias)] = seen
+    assert xs.is_contiguous() and xs.data_ptr() == x.data_ptr() and bias is conv3.int8_bias
+    assert out.shape == (2, 40, 6, 5) and out.dtype == torch.bfloat16
 
 
 def test_int8_conv_refuses_what_q1_does_not_take(rng):
@@ -106,8 +164,17 @@ def test_int8_conv_refuses_what_q1_does_not_take(rng):
         cuda_int8_conv._check(x, layout, torch.ones(16), 0, None)
     with pytest.raises(ValueError, match="f32 or bf16"):
         cuda_int8_conv._check(x.half(), layout, torch.ones(16), 1, None)
-    with pytest.raises(ValueError, match="w_scale"):
-        cuda_int8_conv._check(x, layout, torch.ones(8), 1, None)
+    # The layout pads Cout 16 to its block of 32: 8 and 20 fit the block, 40
+    # needs two; the true Cout travels with the layout, so all are refused.
+    for bad in (torch.ones(8), torch.ones(20), torch.ones(40), torch.ones((16, 1))):
+        with pytest.raises(ValueError, match="w_scale"):
+            cuda_int8_conv._check(x, layout, bad, 1, None)
+    with pytest.raises(ValueError, match="channels"):  # 20 input channels fit the layout's one chunk of 24
+        cuda_int8_conv._check(x[..., :20], layout, torch.ones(16), 1, None)
+    with pytest.raises(ValueError, match="does not hold"):
+        cuda_int8_conv._check(x, layout._replace(cout=40), torch.ones(40), 1, None)
+    with pytest.raises(ValueError, match="Int8Layout"):
+        cuda_int8_conv._check(x, layout.tensor, torch.ones(16), 1, None)
     assert cuda_int8_conv._check(x, layout, torch.ones(16), 1, torch.zeros(16)) == (9, 16, 24)
 
 
@@ -373,7 +440,7 @@ def test_freeze_stores_int8_from_the_f32_weights():
     conv = teacher.face_morpher.bottleneck_blocks[0][0]  # 32 + 27 pose channels -> 32
     assert conv.weight.dtype == torch.bfloat16 and conv.int8_layout.dtype == torch.int8
     jw8, js = jquant.quantize_weight(jnp.asarray(jparams["face_morpher"]["body"]["bottleneck_blocks"][0]["conv"]["w"]))
-    np.testing.assert_array_equal(cuda_int8_conv._hwio(conv.int8_layout, 59).numpy(), np.asarray(jw8))
+    np.testing.assert_array_equal(cuda_int8_conv._hwio(quant._int8_weights(conv)[0]).numpy(), np.asarray(jw8))
     np.testing.assert_array_equal(conv.int8_scale.numpy(), np.asarray(js))
     heads = [m for m in teacher.modules() if isinstance(m, nn.Conv2d) and not quant.conv_eligible(m)]
     assert heads and not any(hasattr(m, "int8_layout") for m in heads)

@@ -23,8 +23,7 @@ import argparse
 import json
 import sys
 
-# --matmul-precision's words, JAX's, onto torch.set_float32_matmul_precision's.
-MATMUL_PRECISION = {"default": "medium", "high": "high", "highest": "highest"}
+from tha4_tpu_torch.utils.precision import MATMUL_PRECISION
 
 
 def main(argv=None) -> int:
@@ -42,40 +41,39 @@ def main(argv=None) -> int:
     parser.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
                         help="compute dtype for the port's poser (bf16 = the production fast path)")
     parser.add_argument("--matmul-precision", choices=tuple(MATMUL_PRECISION), default=None,
-                        help="f32 matmul precision for this call (torch.set_float32_matmul_precision: default -> "
-                        "medium, high -> high, highest -> highest; restored afterwards; unset: left as it is). The "
-                        "hand-written kernels keep their stated operand precision whatever this flag says")
+                        help="f32 matmul precision of the evaluated poser's calls (JAX's words onto "
+                        "torch.set_float32_matmul_precision: default -> medium, high -> high, highest -> highest; "
+                        "unset: full f32 for --dtype f32). The hand-written kernels keep their stated operand "
+                        "precision whatever this flag says")
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu (the kernels' plain versions)")
     args = parser.parse_args(argv)
 
     import torch
 
     from tha4_tpu_torch.charmodel import CharacterModel
-    from tha4_tpu_torch.utils import fidelity
+    from tha4_tpu_torch.utils import fidelity, precision
 
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
-    before = torch.get_float32_matmul_precision()
-    if args.matmul_precision is not None:
-        torch.set_float32_matmul_precision(MATMUL_PRECISION[args.matmul_precision])
-    try:
+    # The posers set their precision (utils.precision); the command leaves
+    # the process's as it found it.
+    with precision.restored():
         if args.against is not None:
             a = CharacterModel.load(args.model)
             b = CharacterModel.load(args.against)
             stats = fidelity.compare_posers(
-                a.get_poser(compute_dtype=dtype, device=args.device), b.get_poser(device=args.device),
-                a.get_character_image(), fidelity.random_pose_suite(args.poses, args.seed),
-                lpips_weights=args.lpips_weights,
+                a.get_poser(compute_dtype=dtype, device=args.device, matmul_precision=args.matmul_precision),
+                b.get_poser(device=args.device), a.get_character_image(),
+                fidelity.random_pose_suite(args.poses, args.seed), lpips_weights=args.lpips_weights,
             )
         else:
             stats = fidelity.compare_with_reference(
                 args.model, num_poses=args.poses, reference_src=args.reference_src, seed=args.seed,
                 lpips_weights=args.lpips_weights, compute_dtype=dtype, device=args.device,
+                matmul_precision=args.matmul_precision,
             )
             if stats is None:
                 print("reference implementation not found; use --against", file=sys.stderr)
                 return 2
-    finally:
-        torch.set_float32_matmul_precision(before)
     stats["dtype"] = args.dtype
     print(json.dumps(stats))
     return 0

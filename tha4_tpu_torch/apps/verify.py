@@ -269,10 +269,10 @@ def main(argv=None, teacher_cfg=None) -> int:
         report("int8 teacher fidelity", "missing", path=char_image)
     else:
         from tha4_tpu_torch.ops import quant
+        from tha4_tpu_torch.utils import precision
 
         # f32 labels: full-f32 products, as the JAX f32 teacher's.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        precision.set_full_f32()
         teacher = mode_07.Teacher.from_params(params, cfg).freeze(torch.float32, device)
         image = torch.from_numpy(imagecodec.load_image_hwc(char_image))[None].to(device)
         ncal = args.int8_cal_poses

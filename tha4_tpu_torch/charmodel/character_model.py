@@ -25,13 +25,15 @@ class CharacterModel:
         self._posers = {}
         self._character_image: Optional[np.ndarray] = None
 
-    def get_poser(self, compute_dtype: torch.dtype = torch.float32, device="cuda"):
-        """The student poser for this dtype and device, built once and cached.
+    def get_poser(self, compute_dtype: torch.dtype = torch.float32, device="cuda", matmul_precision: Optional[str] = None):
+        """The student poser for this dtype, device and f32 matmul precision
+        (JAX's words; ``mode_14.StudentPoser``), built once and cached per
+        (dtype, device, precision).
 
         There is no fallback: ``device='cuda'`` without a card fails."""
         from tha4_tpu_torch.poser.modes import mode_14
 
-        key = (compute_dtype, str(torch.device(device)))
+        key = (compute_dtype, str(torch.device(device)), matmul_precision)
         if key not in self._posers:
             self._posers[key] = mode_14.create_poser(
                 module_file_names={
@@ -40,6 +42,7 @@ class CharacterModel:
                 },
                 compute_dtype=compute_dtype,
                 device=device,
+                matmul_precision=matmul_precision,
             )
         return self._posers[key]
 

@@ -44,6 +44,7 @@ from tha4_tpu_torch.tasks.workspace import Workspace, file_task
 from tha4_tpu_torch.training import checkpoint as ckpt
 from tha4_tpu_torch.training.schedules import TrainingPhases
 from tha4_tpu_torch.training.trainer import KEY_MODULE, Trainer, TrainerConfig
+from tha4_tpu_torch.utils import precision
 
 logger = logging.getLogger(__name__)
 
@@ -57,7 +58,10 @@ class DistillationJobs:
     ``student_mixed`` (the JAX package's default): the body student trains
     in selective f32, bf16 matmul operands with f32 sums, sines and head.
     ``teacher_int8``: both teachers label with int8 convolutions (``ops.quant``,
-    Q1), calibrated once a run; the sample grids keep the f32 teacher."""
+    Q1), calibrated once a run; the sample grids keep the f32 teacher.
+    ``compute_dtype`` f32 means full-f32 products, as the posers take it: TF32
+    off in cuBLAS and cuDNN (``utils.precision.set_full_f32``); bf16 leaves
+    the setting as it is."""
 
     def __init__(
         self,
@@ -77,6 +81,8 @@ class DistillationJobs:
     ):
         if config.num_gpus > 1:
             raise NotImplementedError(f"num_gpus = {config.num_gpus}: training on more than one GPU waits for the port's data-parallel slice")
+        if compute_dtype == torch.float32:
+            precision.set_full_f32()
         self.config = config
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)

@@ -220,10 +220,12 @@ def load_scales(path: str) -> List[dict]:
 
 
 @torch.no_grad()
-def store_int8(module: nn.Module) -> None:
+def store_int8(module: nn.Module, dtype: Optional[torch.dtype] = None) -> None:
     """Keep, beside every eligible conv under ``module``, its weight as Q1
-    reads it (``int8_layout``, ``cuda_int8_conv.weight_layout``) and its
-    per-Cout f32 scale (``int8_scale``), quantized from the weight as it
+    reads it (``int8_layout``, the tensor of ``cuda_int8_conv.weight_layout``;
+    its channel counts are the conv's), its
+    per-Cout f32 scale (``int8_scale``) and, given the compute ``dtype``,
+    its bias cast to it once (``int8_bias``), quantized from the weight as it
     stands, which must still be f32 (a conv that has them keeps them):
     buffers outside the state dict, for a frozen network (a later change to
     a weight does not reach them)."""
@@ -232,14 +234,18 @@ def store_int8(module: nn.Module) -> None:
             if m.weight.dtype != torch.float32:
                 raise ValueError(f"store_int8: quantize from the f32 weight, got {m.weight.dtype}")
             w8, s = quantize_weight(m.weight.permute(2, 3, 1, 0))
-            m.register_buffer("int8_layout", cuda_int8_conv.weight_layout(w8), persistent=False)
+            m.register_buffer("int8_layout", cuda_int8_conv.weight_layout(w8).tensor, persistent=False)
             m.register_buffer("int8_scale", s.contiguous(), persistent=False)
+            if dtype is not None and m.bias is not None:
+                m.register_buffer("int8_bias", m.bias.detach().to(dtype).contiguous(), persistent=False)
 
 
-def _int8_weights(conv: nn.Conv2d) -> Tuple[torch.Tensor, torch.Tensor]:
+def _int8_weights(conv: nn.Conv2d) -> Tuple[cuda_int8_conv.Int8Layout, torch.Tensor]:
+    """(Q1's layout, the per-Cout scale) of ``conv``: those ``store_int8``
+    kept, else quantized now from its f32 weight."""
     layout = getattr(conv, "int8_layout", None)
     if layout is not None:
-        return layout, conv.int8_scale
+        return cuda_int8_conv.Int8Layout(layout, conv.in_channels, conv.out_channels), conv.int8_scale
     if conv.weight.dtype not in (torch.float32, torch.float64):
         raise RuntimeError(f"int8 teacher: a {conv.weight.dtype} conv without stored int8 weights; freeze the teacher "
                            "(Teacher.freeze quantizes from f32 first)")
@@ -247,18 +253,27 @@ def _int8_weights(conv: nn.Conv2d) -> Tuple[torch.Tensor, torch.Tensor]:
     return cuda_int8_conv.weight_layout(w8), s
 
 
+def _int8_bias(conv: nn.Conv2d, dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """The conv's bias in x's dtype: the one ``store_int8`` cast, else a
+    cast now."""
+    stored = getattr(conv, "int8_bias", None)
+    if stored is not None and stored.dtype == dtype:
+        return stored
+    return None if conv.bias is None else conv.bias.to(dtype)
+
+
 def conv_hook(ctx, conv: nn.Conv2d, x: torch.Tensor) -> Optional[torch.Tensor]:
     """What ``ops.nn.Conv2d`` does with an eligible conv under a scope: a
     calibration records x and returns None (the conv runs as usual); an
     apply scope returns the int8 conv of NCHW ``x``, NCHW (channels-last
-    memory), in x's dtype, bias added."""
+    memory), in x's dtype, bias added.  An x that lies channels-last reaches
+    Q1 as it is (its NHWC view is contiguous: no copy)."""
     sig = nchw_signature(x, conv)
     if isinstance(ctx, Calibration):
         ctx.observe(sig, x)
         return None
     x_scale = ctx.next_scale(sig)
     layout, w_s = _int8_weights(conv)
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    out = cuda_int8_conv.int8_conv(x.permute(0, 2, 3, 1), layout, w_s, x_scale, conv.padding[0], bias)
+    out = cuda_int8_conv.int8_conv(x.permute(0, 2, 3, 1), layout, w_s, x_scale, conv.padding[0],
+                                   _int8_bias(conv, x.dtype))
     return out.permute(0, 3, 1, 2)
-

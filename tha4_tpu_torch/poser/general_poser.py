@@ -32,6 +32,7 @@ import torch
 
 from tha4_tpu_torch.poser.modes.pose_parameters import get_pose_parameters
 from tha4_tpu_torch.poser.poser import PoseParameterGroup, Poser
+from tha4_tpu_torch.utils import precision
 
 Subrect = Tuple[Tuple[int, int], Tuple[int, int]]  # ((y0, y1), (x0, x1))
 
@@ -52,8 +53,7 @@ class GeneralPoser(Poser):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
         if compute_dtype == torch.float32:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            precision.set_full_f32()
         self.image_size = image_size
         self.output_length = output_length
         self.default_output_index = default_output_index

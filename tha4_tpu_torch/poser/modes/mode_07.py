@@ -112,10 +112,10 @@ class Teacher(nn.Module):
         linear casts itself to its input's dtype).  The U-Nets keep their K6
         weights in its layout (``Unet.store_w9``), and every conv that the
         int8 teacher quantizes keeps its int8 weight, quantized from f32
-        before the cast, as the JAX teacher quantizes its f32 params
-        (``ops.quant.store_int8``)."""
+        before the cast, as the JAX teacher quantizes its f32 params, with
+        its bias cast to ``dtype`` once (``ops.quant.store_int8``)."""
         self.requires_grad_(False).eval().to(device)
-        quant.store_int8(self)
+        quant.store_int8(self, dtype)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 for p in m.parameters(recurse=False):  # not the buffers: the int8 scales stay f32

@@ -21,6 +21,7 @@ from tha4_tpu_torch.models import siren
 from tha4_tpu_torch.ops.cuda_siren import PackedChain
 from tha4_tpu_torch.poser.modes.pose_parameters import get_pose_parameters
 from tha4_tpu_torch.poser.poser import PoseParameterGroup, Poser
+from tha4_tpu_torch.utils import precision
 
 KEY_FACE_MORPHER = "face_morpher"
 KEY_BODY_MORPHER = "body_morpher"
@@ -54,18 +55,17 @@ def compute_outputs(
     return tuple(body_out) + (face_out,)
 
 
-def _set_f32_precision() -> None:
-    """f32 means full-f32 products, as JAX's 'highest' on the f32 path: no
-    TF32 in cuBLAS matmuls (the resize) or cuDNN."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 class StudentPoser(Poser):
     """The mode_14 pipeline on one device and compute dtype.
 
     Weights are packed once here for that dtype and device.  Image and pose
-    are cast to the compute dtype; all six outputs come back as f32."""
+    are cast to the compute dtype; all six outputs come back as f32.
+
+    ``matmul_precision`` (JAX's words, ``utils.precision.MATMUL_PRECISION``)
+    holds for the f32 matmuls of each call, as the JAX poser's
+    (``tha4_tpu/poser/modes/mode_14.py:69,83``); without it an f32 poser
+    turns TF32 off (full-f32 products, JAX's ``highest``) and a bf16 one
+    leaves the setting as it is."""
 
     def __init__(
         self,
@@ -74,10 +74,15 @@ class StudentPoser(Poser):
         default_output_index: int = 0,
         compute_dtype: torch.dtype = torch.float32,
         device="cuda",
+        matmul_precision: Optional[str] = None,
     ):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
-        _set_f32_precision()
+        if matmul_precision is not None and matmul_precision not in precision.MATMUL_PRECISION:
+            raise ValueError(f"matmul_precision must be one of {sorted(precision.MATMUL_PRECISION)}, got {matmul_precision}")
+        if matmul_precision is None and compute_dtype == torch.float32:
+            precision.set_full_f32()
+        self.matmul_precision = matmul_precision
         self.device = torch.device(device)
         self.face_cfg = face.cfg
         self.body_cfg = body.cfg
@@ -108,7 +113,7 @@ class StudentPoser(Poser):
             image = image[None]
         if pose.dim() == 1:
             pose = pose[None]
-        with torch.inference_mode():
+        with torch.inference_mode(), precision.matmul_precision(self.matmul_precision):
             outs = compute_outputs(
                 self.face_cfg, self.body_cfg, self.face_chain, self.body_chains,
                 image.to(self.compute_dtype), pose.to(self.compute_dtype),
@@ -126,6 +131,7 @@ def create_poser(
     default_output_index: int = 0,
     compute_dtype: torch.dtype = torch.float32,
     device="cuda",
+    matmul_precision: Optional[str] = None,
 ) -> StudentPoser:
     """Build the student poser from reference-format ``.pt`` files or the
     port's own ``.npz`` training checkpoints."""
@@ -138,6 +144,7 @@ def create_poser(
         default_output_index=default_output_index,
         compute_dtype=compute_dtype,
         device=device,
+        matmul_precision=matmul_precision,
     )
 
 

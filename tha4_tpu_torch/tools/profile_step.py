@@ -1,7 +1,7 @@
 """Profile or time one distillation step on one GPU.
 
     python -m tha4_tpu_torch.tools.profile_step [--student body|face|frame] [--dtype bf16|f32]
-                                                [--steps 5]
+                                                [--steps 5] [--int8]
     python tha4_tpu_torch/tools/profile_step.py --time [--root DIR] [--label NAME]
 
 Builds the shipped teacher at full width with seeded random weights (mode_07
@@ -11,7 +11,9 @@ for the face student), the shipped student and the synthetic character.
 Profiling (the default) runs two warm-up steps of the recipe at batch 8
 (``recipes.make_body_distill_step`` with the selective-f32 student in bf16,
 or ``make_face_distill_step``; ``--student frame``: the student frame at
-B = 1, as ``frame_ms`` below runs it), then ``--steps`` steps under
+B = 1, as ``frame_ms`` below runs it; ``--int8``: the body step with its
+teacher under the int8 scope, so that Q1 and the unfused ResBlocks' glue
+stand apart), then ``--steps`` steps under
 ``torch.profiler`` with the poses already on the card.  It prints one line
 per kernel group and the busiest kernels, each as device ms per step and
 launches per step, then a JSON summary: device busy ms per step (the sum of
@@ -34,6 +36,9 @@ the body path instead:
 * ``body_step_ms``: one bf16 body step at B = 8, host clock to
   ``torch.cuda.synchronize()``, the median of 10 after 3 warm-up steps;
   ``body_teacher_ms``, the CUDA-event median of its teacher labels;
+  ``int8_body_step_ms`` and ``int8_body_teacher_ms``, the same under the
+  int8 teacher (``--teacher-int8``: ``ops.quant`` scales calibrated on the
+  character image and a seeded pose batch, as ``DistillationJobs`` does);
 * ``k6_launches_per_call`` where the tree has K6 (``ops.cuda_conv``);
 * ``teacher_launches``: the device operations (kernels, copies, fills) one
   ``mode_07.compute_outputs`` call enqueues at B = 1 and 8, bf16 and f32,
@@ -82,6 +87,7 @@ GROUPS = (
     ("K5 poly_sin", ("poly_sin_",)),
     ("K6 affine_silu_conv3", ("affine_silu_conv3",)),
     ("K6 fold", ("group_norm_stats", "group_norm_fold")),
+    ("Q1 int8_conv", ("int8_conv", "int8_quantize")),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "nchwToNhwc", "nhwcToNchw", "xmma")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "Kernel2", "sm90_")),
     ("reduction", ("reduce",)),
@@ -96,9 +102,11 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _setup(student_kind: str, dtype: torch.dtype, workdir: str):
+def _setup(student_kind: str, dtype: torch.dtype, workdir: str, int8: bool = False):
     """(teacher, image, poses, step()) for one optimizer step of the chosen
-    recipe; ``step()`` takes the next of four pose batches on the card."""
+    recipe; ``step()`` takes the next of four pose batches on the card.
+    ``int8``: the body teacher labels under ``ops.quant`` scales calibrated
+    on the image and a pose batch of its own (teacher[1])."""
     from tha4_tpu_torch.charmodel.synthetic import random_teacher_07, write_distiller_inputs
     from tha4_tpu_torch.core import imagecodec
     from tha4_tpu_torch.distiller import recipes
@@ -111,10 +119,17 @@ def _setup(student_kind: str, dtype: torch.dtype, workdir: str):
     image = torch.from_numpy(imagecodec.load_image_hwc(config.character_image_file_name))[None].cuda()
     gen = torch.Generator().manual_seed(SEED)
     poses = [sample_poses(gen, BATCH).cuda() for _ in range(4)]
+    scales = None
     if student_kind == "body":
         teacher = mode_07.Teacher.from_params(random_teacher_07(gen)).freeze(dtype, "cuda")
         student = siren.SirenMorpher(generator=gen).cuda()
-        recipe = recipes.make_body_distill_step(teacher, image, dtype, mixed=dtype == torch.bfloat16)
+        if int8:
+            from tha4_tpu_torch.ops import quant
+
+            cal_poses = sample_poses(torch.Generator().manual_seed(0xCA11B), BATCH).cuda().to(dtype)
+            scales = quant.run_calibration(mode_07.compute_outputs, teacher, image.to(dtype).expand(BATCH, -1, -1, -1),
+                                           cal_poses)
+        recipe = recipes.make_body_distill_step(teacher, image, dtype, mixed=dtype == torch.bfloat16, teacher_quant=scales)
         weights = recipes.default_body_phases().loss_weights(recipes.BODY_LOSS_TERMS, 500_000)
 
         def run(optimizer, p):
@@ -135,7 +150,7 @@ def _setup(student_kind: str, dtype: torch.dtype, workdir: str):
         run(optimizer, poses[count[0] % len(poses)])
         count[0] += 1
 
-    return teacher, image, poses, step
+    return (teacher, scales), image, poses, step
 
 
 def _event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -252,7 +267,7 @@ def _time_body(label: str) -> dict:
     result = {"label": label, "card": card, **_time_student(), "teacher_ms": {}, "teacher_launches": {}}
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
-            teacher, image, poses, step = _setup("body", dtype, workdir)
+            (teacher, _), image, poses, step = _setup("body", dtype, workdir)
         for n in (1, BATCH):
             images, p = image.to(dtype).expand(n, *image.shape[1:]), poses[0][:n].to(dtype)
             with torch.no_grad():
@@ -265,25 +280,26 @@ def _time_body(label: str) -> dict:
         if dtype == torch.float32:
             del teacher, step
             torch.cuda.empty_cache()
-    times = []
-    for _ in range(13):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1000.0)
-    result["body_step_ms"] = statistics.median(times[3:])
+    result["body_step_ms"] = _host_ms(step, 10, 3)
     with torch.no_grad():
         result["body_teacher_ms"] = _event_ms(lambda: recipes.body_teacher_targets(teacher, image, poses[0], torch.bfloat16), 5)
         result.update(_k2_back_to_back())
+    del teacher, step
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
+        (teacher, scales), image, poses, step = _setup("body", torch.bfloat16, workdir, int8=True)
+    result["int8_body_step_ms"] = _host_ms(step, 10, 3)
+    with torch.no_grad():
+        result["int8_body_teacher_ms"] = _event_ms(
+            lambda: recipes.body_teacher_targets(teacher, image, poses[0], torch.bfloat16, scales), 5)
     return result
 
 
-def _profile(student: str, dtype: torch.dtype, steps: int) -> dict:
+def _profile(student: str, dtype: torch.dtype, steps: int, int8: bool = False) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with tempfile.TemporaryDirectory(prefix="profile_step_") as workdir:
-        step = _frame(dtype, workdir) if student == "frame" else _setup(student, dtype, workdir)[3]
+        step = _frame(dtype, workdir) if student == "frame" else _setup(student, dtype, workdir, int8)[3]
         for _ in range(2):
             step()
         torch.cuda.synchronize()
@@ -313,7 +329,7 @@ def _profile(student: str, dtype: torch.dtype, steps: int) -> dict:
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
         print(f"    {ms:9.3f} ms/step  {n / steps:6.1f}/step  {name[:110]}")
     return {
-        "student": student, "dtype": tag, "batch": batch, "steps": steps,
+        "student": student, "dtype": tag, "batch": batch, "steps": steps, "int8_teacher": int8,
         "device_busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms,
         "kernels_per_step": len(kernels) / steps,
         "groups_ms": {g: v[0] for g, v in by_group.items()}, "device": torch.cuda.get_device_name(0),
@@ -325,6 +341,7 @@ def main(argv=None) -> int:
     parser.add_argument("--student", choices=("body", "face", "frame"), default="body")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--int8", action="store_true", help="profile the body step under the int8 teacher (--teacher-int8)")
     parser.add_argument("--time", action="store_true", help="time the frame, face step and body path instead of profiling a step")
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                         help="the checkout whose tha4_tpu_torch runs (default: the one this file lies in)")
@@ -339,12 +356,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # Full-f32 products, set as utils.precision.set_full_f32 sets them (the
+    # tool also runs trees that predate that module).
+    torch.set_float32_matmul_precision("highest")
     torch.backends.cudnn.allow_tf32 = False
     if args.time:
         summary = _time_body(args.label or root)
     else:
-        summary = _profile(args.student, torch.bfloat16 if args.dtype == "bf16" else torch.float32, args.steps)
+        summary = _profile(args.student, torch.bfloat16 if args.dtype == "bf16" else torch.float32, args.steps, args.int8)
     print(json.dumps(summary))
     return 0
 

@@ -312,9 +312,10 @@ def compare_posers(poser_a, poser_b, image, poses: np.ndarray, output_index: int
 
 def compare_with_reference(character_model_yaml: str, num_poses: int = 16, reference_src: str = "/root/reference/src",
                            seed: int = 0, lpips_weights: Optional[str] = None, compute_dtype=None,
-                           device="cuda") -> Optional[Dict]:
+                           device="cuda", matmul_precision: Optional[str] = None) -> Optional[Dict]:
     """Render the same pose suite through the port's student poser (in
-    ``compute_dtype``, f32 by default, on ``device``) and the original
+    ``compute_dtype``, f32 by default, on ``device``, at ``matmul_precision``)
+    and the original
     PyTorch implementation (its mode_14, on the CPU in f32); PSNR / SSIM /
     perceptual-proxy stats, or None where the reference source is not
     mounted."""
@@ -327,7 +328,7 @@ def compare_with_reference(character_model_yaml: str, num_poses: int = 16, refer
     from tha4_tpu_torch.charmodel import CharacterModel
 
     ours = CharacterModel.load(character_model_yaml)
-    poser = ours.get_poser(compute_dtype=compute_dtype or torch.float32, device=device)
+    poser = ours.get_poser(compute_dtype=compute_dtype or torch.float32, device=device, matmul_precision=matmul_precision)
     image = ours.get_character_image()
 
     # The reference's mode_14 loaders directly (its CharacterModel class
