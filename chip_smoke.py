@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training, distillation to a character model and the verification slice (the int8 teacher, tha4-torch-verify, tha4-torch-eval) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training, distillation to a character model, the verification slice (the int8 teacher, tha4-torch-verify, tha4-torch-eval) and data-parallel distillation on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -147,7 +147,23 @@ Phases, one or more lines each:
     synthetic character and mask, a random character model; no reference
     source): exit 0, steps 2 and 5 ``skip``, the rest ``ok``; and
     ``tha4-torch-eval --against`` between two random character models, f32
-    and bf16.
+    and bf16;
+16. data-parallel distillation (``python3 chip_smoke.py --phase ddp`` runs
+    it alone after phases 1-2; the ranks are spawned processes that load
+    the parent's build): (a) two gloo ranks sharing the card train both
+    shipped students against the full-width random teachers, 4 steps each
+    at batch 8 (4 a rank, teacher lookahead K = 2), bf16 and f32, through
+    ``DistillationJobs``' trainers: the ranks' parameters bit-equal, the
+    one-process run (K = 1) matched at the stated bars, each rank's exact
+    launches and ms a step (two ranks sharing one card: not a scaling
+    figure); (b) one NCCL rank: its DDP face and body steps equal the plain
+    steps bit for bit (f32, cuDNN deterministic); (c) ``run_config`` with
+    ``num_gpus: 2`` and no ranks warns and exports the ``num_gpus: 1``
+    run's ``.pt`` files bit for bit, and two gloo ranks through
+    ``run_config`` write each checkpoint and export once (rank 0), and a
+    run stopped at the body's snapshot and rerun exports the same ``.pt``
+    files bit for bit.  NCCL across several GPUs needs more than one card
+    and is not checked here.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K2, K3's forward and grid backward, K4-K6, the fold, Q1, and K7 and the TPU
@@ -2512,24 +2528,27 @@ def phase_int8(torch, workdir: str, teacher_params, image) -> dict:
     distill = {}
     total = INT8_STEPS * TRAIN_BATCH
     step_ms = {}
-    make_face, make_body = recipes.make_face_distill_step, recipes.make_body_distill_step
+    make_face, make_body = recipes.make_face_distill_group, recipes.make_body_distill_group
 
     def timed_steps(make, kind):
+        """The trainer's groups (one step each at batch 8 on one card), each
+        step's ms the group's over its steps."""
         def made(*args, **kwargs):
-            step = make(*args, **kwargs)
+            group = make(*args, **kwargs)
 
             def run(*a, **k):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = step(*a, **k)
+                out = group(*a, **k)
                 torch.cuda.synchronize()
-                step_ms.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+                n = len(a[2])
+                step_ms.setdefault(kind, []).extend([(time.perf_counter() - t0) * 1e3 / n] * n)
                 return out
             return run
         return made
 
-    recipes.make_face_distill_step, recipes.make_body_distill_step = (timed_steps(make_face, "face"),
-                                                                      timed_steps(make_body, "body"))
+    recipes.make_face_distill_group, recipes.make_body_distill_group = (timed_steps(make_face, "face"),
+                                                                        timed_steps(make_body, "body"))
     try:
         for arm, int8_on in (("int8", True), ("bf16", False)):
             config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, f"distill_{arm}"), seed=SEED + 52,
@@ -2567,7 +2586,7 @@ def phase_int8(torch, workdir: str, teacher_params, image) -> dict:
                   f"{INT8_STEPS} steps a student at B = {TRAIN_BATCH}: {row['s']:.1f} s, ms/step {row['ms_step']}, "
                   f"launches {launches}" + (f", scales files with {row['convs']} convs" if int8_on else ""))
     finally:
-        recipes.make_face_distill_step, recipes.make_body_distill_step = make_face, make_body
+        recipes.make_face_distill_group, recipes.make_body_distill_group = make_face, make_body
 
     # (d) tha4-torch-verify on a written full-width bundle, no reference source.
     data = os.path.join(workdir, "verify_data")
@@ -2615,6 +2634,459 @@ def phase_int8(torch, workdir: str, teacher_params, image) -> dict:
     return results
 
 
+# -- phase 16: data parallelism ------------------------------------------------
+
+DDP_STEPS = 4  # steps a student in every data-parallel run, at batch 8
+DDP_PG_TIMEOUT_S = 300  # a rank waits this long at a collective
+DDP_LAUNCH_TIMEOUT_S = 600  # a launch's whole run
+# Two gloo ranks (4 poses each, teacher lookahead K = 2) against one
+# process (8 poses, K = 1), 4 steps a student.  f32: the JAX package's bars
+# for its sharded run against one device (tests/test_multichip.py:200-205,
+# loss rtol 1e-5 there 2e-5, parameters atol 1e-5), which the face holds.
+# The body does not: a rank sums its student's gradients over 4 x 512^2
+# pixels where one process sums over 8 x 512^2, in another order.  Read on
+# an H100, the first step's gradients are then 2.2e-6 of their largest
+# apart with no sign changed, and four Adam steps through the omega = 30
+# sines carry that to 7.3e-5 in the parameters and 7.4e-4 in the last
+# losses.  One process whose student forward and backward are split 4 + 4
+# as the ranks split them (``_split_body_group``) does the same sums in the
+# same order: it reads the ranks' run bit for bit, and the plain one
+# process's distance from it is theirs to the digit, so the batch split is
+# the whole cause.  The f32 body is held to the JAX bars against that
+# witness, and against the plain one process, as bf16 below, to a tenth
+# of bf16's own distance from f32 in the last losses and the update.  Both
+# f32 students' first-step gradients, scaled by their largest, must stay
+# within the CPU test's bars (tests/test_torch_parallel.py: face 1e-5,
+# body 1e-4).
+# bf16: the student's weights are rounded to bf16 (2^-8 of themselves) at
+# every step's packing, and the sine chain carries a flipped rounding on,
+# so an equally valid order of sums moves the run along bf16's own noise:
+# read on an H100, the face's last loss 1.8e-3 and its update 2.2e-2
+# relative from one process.
+# The measure of that noise is the one-process bf16 run's distance from the
+# one-process f32 run from the same start; the two ranks must stay within
+# a fraction of it, in the last losses and in the update over the run,
+# |dp_ranks - dp_one| / |dp_one| over all parameters.
+DDP_F32_LOSS_RTOL = 1e-5
+DDP_F32_PARAM_ATOL = 1e-5
+DDP_F32_GRAD_ATOL = {"face": 1e-5, "body": 1e-4}
+DDP_F32_BODY_SHARE = 0.1
+DDP_BF16_SHARE = 0.5
+# Kernel launches of one step of each student, and of one teacher call.
+DDP_STUDENT_LAUNCHES = {"face": {"sine_chain_t": 1, "sine_chain_t_bwd": 1},
+                        "body": {"grid_sample_train_forward": 1, "grid_sample_grid_backward": 1, "poly_sin_forward": 9,
+                                 "poly_sin_backward": 9}}
+DDP_TEACHER_LAUNCHES = {"face": {"grid_sample_fast": 2},
+                        "body": {"grid_sample_fast": 5, "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL,
+                                 "fold_groupnorm_film": K6_PER_TEACHER_CALL}}
+
+
+def _teacher_ms_a_pose(torch, jobs) -> dict:
+    """The production (bf16) teachers' labels, in ms a pose, at 4 and at
+    ``recipes.TEACHER_SATURATION_BATCH`` (8) poses a call: lookahead pays
+    on this card where a call of 8 labels a pose faster than one of 4."""
+    from tha4_tpu_torch.distiller import recipes
+
+    image, dtype = jobs.character_image(), jobs.compute_dtype
+    poses = jobs.pose_source.batch(torch.Generator().manual_seed(SEED + 71), recipes.TEACHER_SATURATION_BATCH).cuda()
+    label = {"face": lambda p: recipes.face_teacher_targets(jobs.face_teacher(), image, p, dtype),
+             "body": lambda p: recipes.body_teacher_targets(jobs.body_teacher(), image, p, dtype)}
+    return {kind: {n: _time_ms(lambda: fn(poses[:n]), iters=10, warmup=2) / n for n in (4, len(poses))}
+            for kind, fn in label.items()}
+
+
+class _StopAtSnapshot(Exception):
+    """Raised on every rank after a snapshot's write: a run stopped there."""
+
+
+def _ddp_counters():
+    from tha4_tpu_torch.ops import cuda_conv, cuda_poly_sin, cuda_siren, cuda_warp
+
+    return [cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd, cuda_warp.grid_sample_fast,
+            cuda_warp.grid_sample_train_forward, cuda_warp.grid_sample_grid_backward, cuda_poly_sin.poly_sin_forward,
+            cuda_poly_sin.poly_sin_backward, cuda_conv.fused_affine_conv3_nchw, cuda_conv.fold_groupnorm_film]
+
+
+def _ddp_config(config_path: str, prefix: str, num_gpus: int):
+    from tha4_tpu_torch.distiller.config import DistillerConfig
+
+    os.makedirs(prefix, exist_ok=True)
+    return dataclasses.replace(DistillerConfig.load(config_path), prefix=prefix, num_gpus=num_gpus)
+
+
+def _ddp_kwargs(teacher_params, dtype, per_checkpoint: int) -> dict:
+    """``DistillationJobs``'s arguments: the full-width random teachers,
+    the shipped students, DDP_STEPS steps a student on the card."""
+    total = DDP_STEPS * TRAIN_BATCH
+    return dict(teacher_params_07=teacher_params, compute_dtype=dtype, device="cuda", face_total_examples=total,
+                body_total_examples=total, examples_per_checkpoint=per_checkpoint, examples_per_snapshot=per_checkpoint)
+
+
+def _split_body_group(torch, jobs, parts: int = 2):
+    """The body trainer's ``train_group`` in one process (K = 1) with the
+    student's forward and backward split as ``parts`` ranks split them:
+    the teacher labels the global batch, each part's gradient of its own
+    mean loss is divided by ``parts`` and the parts summed, as DDP averages
+    them; the losses are the parts' mean, as ``mesh.mean_over_ranks``."""
+    from tha4_tpu_torch.distiller import recipes
+
+    teacher, image, dtype = jobs.body_teacher(), jobs.character_image(), jobs.compute_dtype
+    batch = jobs.config.body_morpher_batch_size
+    per = batch // parts
+
+    def group(student, optimizer, gens, lrs, weights_list):
+        for gen, lr, weights in zip(gens, lrs, weights_list):
+            poses = jobs.local_poses(gen, batch)
+            labels = recipes.body_teacher_targets(teacher, image, poses, dtype)
+            grads, named = None, []
+            for i in range(parts):
+                part = slice(i * per, (i + 1) * per)
+                optimizer.zero_grad(set_to_none=True)
+                total, terms = recipes.body_loss(student, tuple(t[part] for t in labels), poses[part], weights, dtype,
+                                                 jobs.student_mixed)
+                total.backward()
+                g = [p.grad / parts for p in student.parameters()]
+                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+                named.append(terms)
+            for p, g in zip(student.parameters(), grads):
+                p.grad = g
+            for param_group in optimizer.param_groups:
+                param_group["lr"] = lr
+            optimizer.step()
+        return {k: sum(n[k].detach().float() for n in named) / parts for k in named[0]}
+
+    return group
+
+
+def _ddp_train(torch, jobs, kinds=("face", "body"), split_body: bool = False) -> dict:
+    """The students' DDP_STEPS steps through their trainers: the final
+    parameters, the first step's gradients (as Adam takes them, averaged
+    over the ranks), the last step's losses (over the global batch) and ms
+    a step, each group timed between two synchronizes.  ``split_body``:
+    the body's steps run as ``_split_body_group``."""
+    out = {}
+    for kind in kinds:
+        trainer = jobs.make_face_trainer() if kind == "face" else jobs.make_body_trainer()
+        init = {k: v.detach().float().cpu().numpy() for k, v in trainer._fresh_state()[0].state_dict().items()}
+        ms, first_grads = [], {}
+        if kind == "body" and split_body:
+            trainer.train_group = _split_body_group(torch, jobs)
+        make_optimizer, group = trainer.make_optimizer, trainer.train_group
+
+        def hooked(module):
+            optimizer = make_optimizer(module)
+            names = [n for n, _ in module.named_parameters()]
+
+            def before_step(opt, args, kwargs):
+                if not first_grads:
+                    first_grads.update({n: p.grad.detach().float().cpu().numpy()
+                                        for n, p in zip(names, opt.param_groups[0]["params"])})
+
+            optimizer.register_step_pre_hook(before_step)
+            return optimizer
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = group(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / len(args[2]))
+            return metrics
+
+        trainer.make_optimizer, trainer.train_group = hooked, timed
+        done = trainer.train()
+        out[kind] = {"init": init, "params": {k: v.detach().float().cpu().numpy() for k, v in done["module"].state_dict().items()},
+                     "grads": first_grads, "loss": {k: float(v) for k, v in done["metrics"].items()}, "ms": ms,
+                     "lookahead": trainer.cfg.lookahead}
+    return out
+
+
+def _ddp_rank_main(config_path: str, workdir: str, teacher_params) -> dict:
+    """A rank of phase 16 (a) and (c): both students in bf16 and f32
+    through their trainers, then the DAG through ``run_config`` twice, once
+    stopped at the body's snapshot and rerun."""
+    import torch
+
+    from tha4_tpu_torch.distiller import pipeline
+    from tha4_tpu_torch.parallel import mesh
+    from tha4_tpu_torch.training import checkpoint as ckpt
+    from tha4_tpu_torch.training.trainer import Trainer
+    from tha4_tpu_torch.utils import precision
+
+    precision.set_full_f32()  # as the parent runs: a spawned rank inherits neither setting
+    torch.backends.cudnn.deterministic = True
+    out = {"rank": mesh.rank(), "world": mesh.world_size(), "backend": torch.distributed.get_backend(),
+           "device": torch.cuda.get_device_name(torch.cuda.current_device())}
+    counters = _ddp_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    total = DDP_STEPS * TRAIN_BATCH
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        jobs = pipeline.DistillationJobs(_ddp_config(config_path, os.path.join(workdir, f"ddp_{tag}_ranks"), 2),
+                                         **_ddp_kwargs(teacher_params, dtype, total))
+        out[tag] = _ddp_train(torch, jobs)
+        del jobs
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+
+    writes, exports, stopped = [], [], []
+    save_state, export, trainer_save = ckpt.save_state, pipeline.DistillationJobs._export_student, Trainer._save
+
+    def counted_save(directory, *args):
+        writes.append(os.path.relpath(directory, workdir))
+        save_state(directory, *args)
+
+    def counted_export(checkpoint_file, module, dest):
+        exports.append(os.path.relpath(dest, workdir))
+        export(checkpoint_file, module, dest)
+
+    kwargs = _ddp_kwargs(teacher_params, torch.bfloat16, total // 2)
+    config_a = _ddp_config(config_path, os.path.join(workdir, "dag_ranks_a"), 2)
+    config_b = _ddp_config(config_path, os.path.join(workdir, "dag_ranks_b"), 2)
+
+    def stopping_save(self, directory, module, optimizer, examples_seen, key):
+        trainer_save(self, directory, module, optimizer, examples_seen, key)  # rank 0 writes, both pass the barrier
+        if directory == ckpt.snapshot_dir(config_b.body_morpher_prefix()) and examples_seen == total // 2 and not stopped:
+            stopped.append(examples_seen)
+            raise _StopAtSnapshot()
+
+    ckpt.save_state, pipeline.DistillationJobs._export_student = counted_save, staticmethod(counted_export)
+    try:
+        pipeline.run_config(config_a, "all", **kwargs)
+        Trainer._save = stopping_save
+        try:
+            pipeline.run_config(config_b, "all", **kwargs)
+        except _StopAtSnapshot:
+            pass
+        Trainer._save = trainer_save
+        pipeline.run_config(config_b, "all", **kwargs)
+    finally:
+        ckpt.save_state, pipeline.DistillationJobs._export_student, Trainer._save = save_state, staticmethod(export), trainer_save
+    out["dag"] = {"writes": writes, "exports": exports, "stopped": stopped}
+    return out
+
+
+def _nccl_rank_main(config_path: str, workdir: str, teacher_params) -> dict:
+    """Phase 16 (b), one rank over NCCL: a DDP face step and a DDP body step
+    in f32, cuDNN deterministic, against the plain step from the same
+    student, poses and labels; the largest difference of the losses,
+    gradients and parameters."""
+    import torch
+
+    from tha4_tpu_torch.distiller import pipeline, recipes
+    from tha4_tpu_torch.models import siren
+    from tha4_tpu_torch.parallel import mesh
+    from tha4_tpu_torch.utils import precision
+
+    precision.set_full_f32()
+    torch.backends.cudnn.deterministic = True
+    jobs = pipeline.DistillationJobs(_ddp_config(config_path, os.path.join(workdir, "nccl"), 1),
+                                     **_ddp_kwargs(teacher_params, torch.float32, DDP_STEPS * TRAIN_BATCH))
+    out = {"backend": torch.distributed.get_backend(), "world": mesh.world_size(),
+           "deterministic": torch.backends.cudnn.deterministic}
+    poses = jobs.pose_source.batch(torch.Generator().manual_seed(SEED + 60), TRAIN_BATCH).cuda()
+    mask = torch.from_numpy(recipes.load_face_mask_crop(jobs.config.face_mask_image_file_name)).cuda()
+    weights = recipes.default_body_phases().loss_weights(recipes.BODY_LOSS_TERMS, 0)
+    for kind in ("face", "body"):
+        runs = []
+        for wrapped in (False, True):
+            gen = torch.Generator().manual_seed(SEED + 61)
+            if kind == "face":
+                student = siren.SirenFaceMorpher(jobs.face_student_cfg, generator=gen).cuda()
+                step = recipes.make_face_distill_step(jobs.face_teacher(), jobs.character_image(), mask, torch.float32)
+                args = (1e-4,)
+            else:
+                student = siren.SirenMorpher(jobs.body_student_cfg, generator=gen).cuda()
+                step = recipes.make_body_distill_step(jobs.body_teacher(), jobs.character_image(), torch.float32, True)
+                args = (1e-4, weights)
+            named = step(mesh.data_parallel(student) if wrapped else student, recipes.make_adam(student), poses, *args)
+            runs.append([named[k] for k in sorted(named)] + [p.grad for p in student.parameters()]
+                        + [p.detach() for p in student.parameters()])
+        out[kind] = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*runs))
+    return out
+
+
+def _pt_bytes(config) -> dict:
+    out = {}
+    for kind in ("face", "body"):
+        with open(getattr(config, f"character_model_{kind}_morpher_file_name")(), "rb") as f:
+            out[kind] = f.read()
+    return out
+
+
+def phase_ddp(torch, workdir: str, teacher_params, card: str) -> dict:
+    """Phase 16, data-parallel distillation on the one card: (a) two gloo
+    ranks against one process, both students, bf16 and f32; (b) one NCCL
+    rank's DDP step against the plain step; (c) ``num_gpus: 2`` through
+    ``run_config`` without ranks (one process, as ``num_gpus: 1``), and a
+    two-rank ``run_config`` stopped at a snapshot and rerun."""
+    import logging
+
+    from tha4_tpu_torch.charmodel.synthetic import write_distiller_inputs
+    from tha4_tpu_torch.distiller import pipeline
+    from tha4_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    config_path = write_distiller_inputs(os.path.join(workdir, "ddp_inputs"), seed=SEED + 70, batch_size=TRAIN_BATCH)
+    total = DDP_STEPS * TRAIN_BATCH
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # The one-process runs: (a)'s references (the f32 body's also with
+        # its forward split as the ranks split it), and (c)'s num_gpus 1 and 2.
+        single = {}
+        for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            jobs = pipeline.DistillationJobs(_ddp_config(config_path, os.path.join(workdir, f"ddp_{tag}_one"), 1),
+                                             **_ddp_kwargs(teacher_params, dtype, total))
+            single[tag] = _ddp_train(torch, jobs)
+            if tag == "bf16":
+                jobs_bf16 = jobs
+            del jobs
+        jobs = pipeline.DistillationJobs(_ddp_config(config_path, os.path.join(workdir, "ddp_f32_split"), 1),
+                                         **_ddp_kwargs(teacher_params, torch.float32, total))
+        split = _ddp_train(torch, jobs, kinds=("body",), split_body=True)["body"]
+        del jobs
+        pts, warned = {}, {}
+        for n in (1, 2):
+            config = _ddp_config(config_path, os.path.join(workdir, f"dag_num_gpus_{n}"), n)
+            records = []
+            handler = logging.Handler(logging.WARNING)
+            handler.emit = records.append
+            pipeline.logger.addHandler(handler)
+            try:
+                pipeline.run_config(config, "all", **_ddp_kwargs(teacher_params, torch.bfloat16, total // 2))
+            finally:
+                pipeline.logger.removeHandler(handler)
+            warned[n] = any("config requests 2 GPUs" in r.getMessage() for r in records)
+            pts[n] = _pt_bytes(config)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    teacher_ms = _teacher_ms_a_pose(torch, jobs_bf16)
+    del jobs_bf16
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = mesh.launch(_ddp_rank_main, 2, "gloo", args=(config_path, workdir, teacher_params),
+                        timeout_s=DDP_LAUNCH_TIMEOUT_S, pg_timeout_s=DDP_PG_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = mesh.launch(_nccl_rank_main, 1, "nccl", args=(config_path, workdir, teacher_params),
+                          timeout_s=DDP_LAUNCH_TIMEOUT_S, pg_timeout_s=DDP_PG_TIMEOUT_S)
+    nccl_s = time.perf_counter() - t0
+
+    # (a) the ranks against each other and against one process.
+    r0, r1 = ranks
+    if (r0["world"], r1["world"], r0["backend"]) != (2, 2, "gloo"):
+        raise AssertionError(f"ddp: ranks {r0['world']}, {r1['world']} over {r0['backend']}")
+    def grad_distance(a: dict, one: dict) -> dict:
+        """The first step's gradients: the largest difference over the
+        largest magnitude, tensor by tensor, and the signs that differ (Adam's
+        first step moves a parameter by lr x its gradient's sign)."""
+        return {"grad_rel": max(float(np.abs(a[k] - one[k]).max() / max(np.abs(one[k]).max(), 1e-30)) for k in one),
+                "sign_flips": int(sum((np.sign(a[k]) != np.sign(one[k])).sum() for k in one)),
+                "n": int(sum(one[k].size for k in one))}
+
+    def distance(a: dict, one: dict) -> dict:
+        """``a``'s last losses and parameters against ``one``'s, and the
+        update over the run from their common start."""
+        moved = [(a["params"][k] - one["init"][k], one["params"][k] - one["init"][k]) for k in one["params"]]
+        return {"loss_rel": max(abs(a["loss"][k] - one["loss"][k]) / abs(one["loss"][k]) for k in one["loss"]),
+                "param_abs": max(float(np.abs(a["params"][k] - one["params"][k]).max()) for k in one["params"]),
+                "update_rel": (math.sqrt(sum(float(((x - y) ** 2).sum()) for x, y in moved))
+                               / math.sqrt(sum(float((y ** 2).sum()) for _, y in moved)))}
+
+    print(f"ddp (a): the bf16 teachers' labels, ms a pose at 4 and 8 poses a call, one process ({card}): "
+          + "; ".join(f"{kind} {t[4]:.3f} and {t[8]:.3f}" for kind, t in teacher_ms.items()))
+    compared, failed = {}, []
+    for tag in ("bf16", "f32"):
+        for kind in ("face", "body"):
+            a, b, one = r0[tag][kind], r1[tag][kind], single[tag][kind]
+            if (a["lookahead"], one["lookahead"]) != (2, 1):
+                raise AssertionError(f"ddp {tag} {kind}: lookahead {a['lookahead']} in a rank, {one['lookahead']} alone")
+            for part in ("params", "grads"):
+                if not all(np.array_equal(a[part][k], b[part][k]) for k in a[part]):
+                    raise AssertionError(f"ddp {tag} {kind}: the two ranks' {part} differ")
+            row = distance(a, one) | {"first_grads": grad_distance(a["grads"], one["grads"]), "ms_rank0": a["ms"],
+                                      "ms_rank1": b["ms"], "ms_one": one["ms"]}
+            noise = row["bf16_from_f32"] = distance(single["bf16"][kind], single["f32"][kind])
+            extra = ""
+            if tag == "f32" and kind == "face":
+                ok = row["loss_rel"] <= DDP_F32_LOSS_RTOL and row["param_abs"] <= DDP_F32_PARAM_ATOL
+                bars = f"bars {DDP_F32_LOSS_RTOL:g} and {DDP_F32_PARAM_ATOL:g}"
+            else:
+                share = DDP_F32_BODY_SHARE if tag == "f32" else DDP_BF16_SHARE
+                ok = all(row[k] <= share * noise[k] for k in ("loss_rel", "update_rel"))
+                bars = (f"bars {share:g} x the one-process bf16 run's distance from f32: losses "
+                        f"{noise['loss_rel']:.3g}, update {noise['update_rel']:.3g}")
+            if tag == "f32":
+                grad_bar = DDP_F32_GRAD_ATOL[kind]
+                ok = ok and row["first_grads"]["grad_rel"] <= grad_bar
+                extra = (f"; first step's gradients {row['first_grads']['grad_rel']:.3g} of their largest apart (bar "
+                         f"{grad_bar:g}), {row['first_grads']['sign_flips']} of {row['first_grads']['n']} signs flipped")
+            if tag == "f32" and kind == "body":
+                # The witness: one process with the student's forward split as the ranks split it.
+                row["split"] = distance(a, split) | {"first_grads": grad_distance(a["grads"], split["grads"])}
+                row["split_from_one"] = distance(split, one) | {"first_grads": grad_distance(split["grads"], one["grads"])}
+                held = row["split"]["loss_rel"] <= DDP_F32_LOSS_RTOL and row["split"]["param_abs"] <= DDP_F32_PARAM_ATOL
+                ok = ok and held
+                extra += (f"; against one process with its forward split 4 + 4: losses {row['split']['loss_rel']:.3g}, "
+                          f"parameters {row['split']['param_abs']:.3g}, first gradients "
+                          f"{row['split']['first_grads']['grad_rel']:.3g} (bars {DDP_F32_LOSS_RTOL:g} and "
+                          f"{DDP_F32_PARAM_ATOL:g}: {'held' if held else 'FAILED'}); that split run from the plain one: "
+                          f"losses {row['split_from_one']['loss_rel']:.3g}, parameters "
+                          f"{row['split_from_one']['param_abs']:.3g}, the update {row['split_from_one']['update_rel']:.3g}")
+            compared[f"{tag}_{kind}"] = row
+            print(f"ddp (a) {tag} {kind}: ranks bit-equal; against one process: losses {row['loss_rel']:.3g} relative, "
+                  f"parameters {row['param_abs']:.3g} apart, the update {row['update_rel']:.3g} relative ({bars}){extra}: "
+                  f"{'held' if ok else 'FAILED'}; ms a step rank 0 {[round(x, 2) for x in a['ms']]}, rank 1 "
+                  f"{[round(x, 2) for x in b['ms']]}, one process {[round(x, 2) for x in one['ms']]}")
+            if not ok:
+                failed.append(f"{tag} {kind}")
+    if failed:
+        raise AssertionError(f"ddp (a): {failed} fail their bars")
+    expected = dict.fromkeys((c.__name__ for c in _ddp_counters()), 0)
+    for kind in ("face", "body"):
+        for name, n in DDP_STUDENT_LAUNCHES[kind].items():
+            expected[name] += 2 * DDP_STEPS * n  # two dtypes
+        for name, n in DDP_TEACHER_LAUNCHES[kind].items():
+            expected[name] += 2 * (DDP_STEPS // 2) * n  # a teacher call labels a group of K = 2 steps
+    for r in ranks:
+        if r["launches"] != expected:
+            raise AssertionError(f"ddp: rank {r['rank']} launched {r['launches']}, expected {expected}")
+    print(f"ddp (a): two gloo ranks sharing one card ({card}; not a scaling figure), {DDP_STEPS} steps a student at "
+          f"batch {TRAIN_BATCH} (4 a rank, teacher lookahead K = 2), each rank's launches {r0['launches']}, peak device "
+          f"memory a rank {r0['peak_gb']:.1f} / {r1['peak_gb']:.1f} GiB; the launch took {ranks_s:.1f} s")
+
+    # (b) NCCL at world size 1.
+    if (nccl["backend"], nccl["world"], nccl["deterministic"]) != ("nccl", 1, True) or nccl["face"] or nccl["body"]:
+        raise AssertionError(f"ddp (b): {nccl}")
+    print(f"ddp (b): one NCCL rank, f32, cuDNN deterministic: the DDP face and body steps equal the plain steps bit for "
+          f"bit (largest difference {nccl['face']}, {nccl['body']}); {nccl_s:.1f} s with the launch")
+
+    # (c) run_config: num_gpus 2 without ranks, and two ranks stopped at a snapshot.
+    if not warned[2] or warned[1] or pts[1] != pts[2]:
+        raise AssertionError(f"ddp (c): num_gpus 2 on one card warned {warned[2]} (num_gpus 1: {warned[1]}), "
+                             f"exports equal {pts[1] == pts[2]}")
+    dag = r0["dag"]
+    ckpts = [w for w in dag["writes"] if "/checkpoint/" in w]
+    if r1["dag"]["writes"] or r1["dag"]["exports"] or len(ckpts) != len(set(ckpts)) or dag["stopped"] != [total // 2]:
+        raise AssertionError(f"ddp (c): rank 0 {dag}, rank 1 {r1['dag']}")
+    if len(dag["exports"]) != 4 or len(ckpts) != 2 * 2 * 3:  # two runs, two students, checkpoints 0-2
+        raise AssertionError(f"ddp (c): exports {dag['exports']}, checkpoint writes {ckpts}")
+    if _pt_bytes(_ddp_config(config_path, os.path.join(workdir, "dag_ranks_a"), 2)) != _pt_bytes(
+            _ddp_config(config_path, os.path.join(workdir, "dag_ranks_b"), 2)):
+        raise AssertionError("ddp (c): the two-rank DAG stopped at the body's snapshot and rerun exports other .pt files")
+    print(f"ddp (c): num_gpus 2 on one card warns and exports the num_gpus 1 run's .pt files bit for bit; two gloo ranks "
+          f"through run_config: rank 0 wrote {len(ckpts)} checkpoints once each and {len(dag['exports'])} exports, rank 1 "
+          f"none; stopped at the body's snapshot at {total // 2} and rerun, the .pt files equal the uninterrupted run's")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 16: {seconds:.1f} s")
+    return {"compared": compared, "launches": r0["launches"], "peak_gb": [r0["peak_gb"], r1["peak_gb"]],
+            "teacher_ms_a_pose": teacher_ms, "ranks_s": ranks_s, "nccl_s": nccl_s, "seconds": seconds, "card": card}
+
+
 def _body_inputs(torch, workdir: str) -> tuple:
     """The distiller config (synthetic character and mask), the seeded
     full-width random mode_07 and the character image on the card."""
@@ -2641,6 +3113,18 @@ def main_int8_alone(torch) -> int:
     return 0
 
 
+def main_ddp_alone(torch, card: str) -> int:
+    """``--phase ddp``: phase 16 alone, after the device and the build (the
+    ranks load the parent's build), on the inputs the whole run gives it."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as workdir:
+        _, teacher_params, _ = _body_inputs(torch, workdir)
+        ddp = phase_ddp(torch, workdir, teacher_params, card)
+    print(json.dumps({k: ddp[k] for k in ("compared", "peak_gb", "teacher_ms_a_pose", "ranks_s", "nccl_s", "seconds", "card")}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2655,8 +3139,10 @@ def main() -> int:
     build_s = phase_build()
     if sys.argv[1:] == ["--phase", "int8"]:
         return main_int8_alone(torch)
+    if sys.argv[1:] == ["--phase", "ddp"]:
+        return main_ddp_alone(torch, card)
     if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, or --phase int8")
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --phase int8 or --phase ddp")
 
     from tha4_tpu_torch.models import siren
 
@@ -2684,6 +3170,8 @@ def main() -> int:
         body = phase_body_training(torch, workdir, config, teacher_params)
         distill = phase_distill(torch, workdir, teacher_params)
         int8 = phase_int8(torch, workdir, teacher_params, image)
+        torch.cuda.empty_cache()
+        ddp = phase_ddp(torch, workdir, teacher_params, card)
 
     k5_mixed = k5["f32->bf16"]
     k6_main = k6["shapes"][K6_MAIN_SHAPE]
@@ -2900,6 +3388,7 @@ def main() -> int:
         "serving": {"bench": serving["bench"], "puppeteer": serving["puppeteer"], "seconds": serving["seconds"]},
         "int8": {k: int8[k] for k in ("labels", "teacher_ms", "distill", "eval", "seconds")}
         | {"verify_s": int8["verify"]["s"], "verify_int8": int8["verify"]["checks"]["int8 teacher fidelity"]},
+        "ddp": {k: ddp[k] for k in ("compared", "peak_gb", "teacher_ms_a_pose", "ranks_s", "nccl_s", "seconds")},
     }
     for entry in kernels["kernels"]:
         if set(KERNEL_KEYS) - set(entry) or not entry["launches"] > 0:

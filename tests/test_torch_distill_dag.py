@@ -51,15 +51,15 @@ BOUNDARIES = [24, 48, 72]
 
 
 def _port_trainer(prefix, seen):
-    def step(module, optimizer, gen, lr, weights):
-        return {"loss": torch.tensor(float(torch.rand((), generator=gen)))}
+    def group(module, optimizer, gens, lrs, weights):
+        return {"loss": torch.tensor(float(torch.rand((), generator=gens[-1])))}
 
     return trainer.Trainer(
         trainer.TrainerConfig(prefix=prefix, checkpoint_examples=BOUNDARIES, total_batch_size=BATCH,
                               examples_per_snapshot=SNAPSHOT, examples_per_sample_output=CADENCE, log_every_seconds=0.0),
         init_module=lambda gen: torch.nn.Linear(2, 2),
         make_optimizer=lambda m: torch.optim.Adam(m.parameters()),
-        train_step=step,
+        train_group=group,
         lr_fn=lambda e: 1e-4,
         sample_output_fn=lambda module, examples_seen: seen.append(examples_seen),
     )
@@ -112,7 +112,7 @@ def test_a_sample_cadence_and_its_writer_come_together(tmp_path, cadence, writer
     cfg = trainer.TrainerConfig(prefix=str(tmp_path), checkpoint_examples=BOUNDARIES, examples_per_sample_output=cadence)
     with pytest.raises(ValueError, match="together"):
         trainer.Trainer(cfg, init_module=lambda gen: torch.nn.Linear(2, 2), make_optimizer=lambda m: None,
-                        train_step=None, lr_fn=lambda e: 1e-4, sample_output_fn=writer)
+                        train_group=None, lr_fn=lambda e: 1e-4, sample_output_fn=writer)
 
 
 # -- the DAG end to end -----------------------------------------------------
@@ -265,8 +265,8 @@ def test_deleted_last_checkpoint_retrains_to_the_same_pt(dag, drop_snapshot, mon
 
     def counted(self, phases=None):
         made = make_body_trainer(self, phases)
-        step = made.train_step
-        made.train_step = lambda *args: steps.append(1) or step(*args)
+        group = made.train_group
+        made.train_group = lambda *args: steps.extend([1] * len(args[2])) or group(*args)
         return made
 
     monkeypatch.setattr(DistillationJobs, "make_body_trainer", counted)

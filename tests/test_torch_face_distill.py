@@ -228,14 +228,21 @@ def test_trainer_checkpoints_and_resume_bitwise(inputs, tmp_path):
     assert done["key"] == resumed["key"]
 
 
-def test_pipeline_refuses_what_is_not_ported(inputs, tmp_path):
-    """More than one GPU is refused until the data-parallel slice.  Sample
-    outputs are ported: a config's cadence (10 000 by default) gives the
-    trainer its sample writer, and null gives none."""
+def test_pipeline_refuses_what_is_not_ported(inputs, tmp_path, caplog):
+    """``num_gpus`` follows the JAX package's rule: in a process that was
+    not launched as one of its ranks it warns and trains as one process, and
+    a batch that does not divide over it is refused (the run in full is
+    tests/test_torch_parallel.py's).  Sample outputs are ported: a config's
+    cadence (10 000 by default) gives the trainer its sample writer, and
+    null gives none."""
     jobs = _jobs(inputs, str(tmp_path / "samples"))
     jobs.config = dataclasses.replace(jobs.config, face_morpher_num_training_examples_per_sample_output=10_000)
     trainer = jobs.make_face_trainer()
     assert trainer.cfg.examples_per_sample_output == 10_000 and trainer.sample_output_fn == jobs.write_face_samples
     assert _jobs(inputs, str(tmp_path / "off")).make_face_trainer().sample_output_fn is None
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        DistillationJobs(dataclasses.replace(inputs, num_gpus=2))
+    with caplog.at_level("WARNING"):
+        two = DistillationJobs(dataclasses.replace(inputs, num_gpus=2), device="cpu")
+    assert two.config.num_gpus == 2 and "config requests 2 GPUs" in caplog.text
+    for name in ("face_morpher_batch_size", "body_morpher_batch_size"):
+        with pytest.raises(ValueError, match="does not divide over num_gpus = 2"):
+            DistillationJobs(dataclasses.replace(inputs, num_gpus=2, **{name: 3}), device="cpu")

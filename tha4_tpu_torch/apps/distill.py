@@ -6,6 +6,11 @@ and the JAX package's command:
 
   tha4-torch-distill --config_file <prefix>/config.yaml [--device cuda|cpu]
 
+With ``num_gpus: N`` in the config it trains on N GPUs: it starts the N
+ranks itself where N are visible, or runs as one of them under
+
+  torchrun --nproc-per-node N -m tha4_tpu_torch.apps.distill --config_file ...
+
 It writes ``<prefix>/character_model/`` (``character.png``,
 ``face_morpher.pt``, ``body_morpher.pt``, ``character_model.yaml``), which
 ``tha4-torch-char-pose`` and ``tha4-torch-puppeteer`` open.  Interruptible at
@@ -69,7 +74,10 @@ def main(argv=None) -> int:
 
     from tha4_tpu_torch.distiller import pipeline
     from tha4_tpu_torch.distiller.config import DistillerConfig
+    from tha4_tpu_torch.parallel import mesh
 
+    # Under torchrun, join its process group (one rank a GPU over NCCL, or gloo on the CPU).
+    joined = not mesh.is_distributed() and mesh.initialize_multihost(backend="gloo" if args.device == "cpu" else "nccl")
     config = DistillerConfig.load(args.config_file)
     if args.random_teacher:
         from tha4_tpu_torch.poser.modes import mode_07
@@ -79,8 +87,12 @@ def main(argv=None) -> int:
         kwargs["teacher_params_07"] = mode_07.init(torch.Generator().manual_seed(0), mode_07.TeacherConfig())
     kwargs["student_mixed"] = args.mixed
     kwargs["teacher_int8"] = args.teacher_int8
-    pipeline.run_config(config, target=args.only, compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                        device=args.device, **kwargs)
+    try:
+        pipeline.run_config(config, target=args.only, compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                            device=args.device, **kwargs)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
     return 0
 
 

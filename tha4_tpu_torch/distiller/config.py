@@ -3,7 +3,8 @@
 
 The same yaml fields, defaults and checks as the JAX package and the
 reference, so one config file drives either.  ``num_gpus`` is the number of
-CUDA devices; this port trains on one until its data-parallel slice.
+CUDA devices that train data-parallel (``distiller/pipeline.py``); both
+batch sizes must divide by it.
 """
 
 from __future__ import annotations

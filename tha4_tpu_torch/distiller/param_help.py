@@ -46,8 +46,13 @@ During face-student training the mask's 128 x 128 face crop weights the L1
 loss 20x inside the white region, focusing capacity on eyes and mouth.""",
     "num_gpus": """\
 Data-parallel device count (the reference's ``num_gpus``: CUDA devices).
-This port trains on one GPU: a value above 1 is refused until its
-data-parallel slice lands, rather than silently training on one.""",
+Each step's pose batch is split over that many ranks, one a GPU, and DDP
+averages the gradients, so N GPUs make one GPU's updates (the teacher
+labels several steps a call when a rank's batch is below 8).
+tha4-torch-distill starts the ranks itself when that many GPUs are
+visible, or runs as one of them under ``torchrun --nproc-per-node N``; with
+fewer GPUs visible it warns and trains on one.  Both batch sizes must be
+divisible by this count.""",
     "num_cpu_workers": """\
 Host-side worker threads for pose-data processing.  This framework samples
 each step's poses from a seeded generator on the host in the training
@@ -57,11 +62,11 @@ where it sized DataLoader worker processes; 1 is always enough here.""",
 Training examples per parameter update for the FACE student (SIREN face
 morpher).  The shipped recipe uses 8, the value the lr schedule and the 1M
 example budget were tuned for.  Smaller values save memory at the cost of
-more steps.""",
+more steps; must be divisible by num_gpus.""",
     "body_morpher_batch_size": """\
 Training examples per parameter update for the BODY student (3-level SIREN
 morpher).  The shipped recipe uses 8 (see face_morpher_batch_size); the six
-lr/loss-weight phases assume it.""",
+lr/loss-weight phases assume it.  Must be divisible by num_gpus.""",
     "face_morpher_random_seed_0": """\
 Seed for the face student's parameter initialization and training-data
 stream.  Any integer in [0, 2^64).  Two runs with identical seeds and config

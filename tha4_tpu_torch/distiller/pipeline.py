@@ -20,7 +20,25 @@ three where only mode_07's are given) or, failing that, loaded from the
 ``data/tha4/*.pt`` files.  Each student's trainer writes a sample grid
 (``distiller/sample_output.py``) at its config's cadence, rendered by the
 trainer's frozen teacher, in f32 as the JAX render runs it, and the live
-student.  More than one GPU waits for the data-parallel slice.
+student.
+
+``num_gpus`` (CUDA devices; the JAX package's rule,
+``tha4_tpu/distiller/pipeline.py:85-100``, in the torch idiom):
+
+  * under a launcher (``torchrun --nproc-per-node N``, or
+    ``parallel.mesh.launch``) with N == ``num_gpus`` ranks, the ranks train
+    both students with DDP (``parallel/mesh.py``), holding one process's
+    update stream;
+  * without one, where ``num_gpus`` CUDA devices are visible,
+    ``run_config`` starts ``num_gpus`` ranks itself over NCCL (the
+    counterpart of one JAX process driving N chips);
+  * with fewer devices, a warning, and one process trains on the device.
+
+Both batch sizes must divide by ``num_gpus``.  Each student's teacher
+labels ``recipes.default_lookahead`` steps a call (K = 1 at batch 8 on one
+card).  Under ranks, rank 0 decides which file tasks run (the workspace
+broadcasts its decision) and alone writes the config, the character model's
+files and every checkpoint, log and grid; every rank trains.
 """
 
 from __future__ import annotations
@@ -39,6 +57,7 @@ from tha4_tpu_torch.distiller.config import POSE_DATASET_FILE_NAME, DistillerCon
 from tha4_tpu_torch.distiller.pose_dataset import PoseSource
 from tha4_tpu_torch.models import siren
 from tha4_tpu_torch.ops import quant
+from tha4_tpu_torch.parallel import mesh
 from tha4_tpu_torch.poser.modes import mode_07, mode_12
 from tha4_tpu_torch.tasks.workspace import Workspace, file_task
 from tha4_tpu_torch.training import checkpoint as ckpt
@@ -52,6 +71,17 @@ FACE_SAMPLES, FACE_SAMPLE_CELL = 8, 128  # 8 poses x (teacher crop | student)
 BODY_SAMPLES, BODY_SAMPLE_CELL = 4, 512  # 4 poses x (teacher | student | alpha | grid change)
 
 
+def _written_by_rank_0(write: Callable[[], None]) -> Callable[[], None]:
+    """A file task's body that rank 0 alone runs, every rank waiting for it."""
+
+    def run():
+        if mesh.rank() == 0:
+            write()
+        mesh.barrier()
+
+    return run
+
+
 class DistillationJobs:
     """Builds the two students' trainings, and the task DAG, for one config.
 
@@ -61,7 +91,8 @@ class DistillationJobs:
     Q1), calibrated once a run; the sample grids keep the f32 teacher.
     ``compute_dtype`` f32 means full-f32 products, as the posers take it: TF32
     off in cuBLAS and cuDNN (``utils.precision.set_full_f32``); bf16 leaves
-    the setting as it is."""
+    the setting as it is; it is set here, in every rank's own process (a
+    spawned rank does not inherit it)."""
 
     def __init__(
         self,
@@ -79,8 +110,16 @@ class DistillationJobs:
         student_mixed: bool = True,
         teacher_int8: bool = False,
     ):
-        if config.num_gpus > 1:
-            raise NotImplementedError(f"num_gpus = {config.num_gpus}: training on more than one GPU waits for the port's data-parallel slice")
+        for name in ("face_morpher_batch_size", "body_morpher_batch_size"):
+            if getattr(config, name) % config.num_gpus:
+                raise ValueError(f"{name} = {getattr(config, name)} does not divide over num_gpus = {config.num_gpus}")
+        if mesh.is_distributed():
+            if mesh.world_size() != config.num_gpus:
+                raise ValueError(f"{mesh.world_size()} ranks were launched for num_gpus = {config.num_gpus}")
+        elif config.num_gpus > 1:
+            logger.warning("config requests %d GPUs but this process was not launched as one of %d ranks (%d CUDA "
+                           "devices visible); training as one process", config.num_gpus, config.num_gpus,
+                           torch.cuda.device_count())
         if compute_dtype == torch.float32:
             precision.set_full_f32()
         self.config = config
@@ -173,11 +212,18 @@ class DistillationJobs:
         the scales go to ``{prefix}/teacher_int8_scales_{tag}.json``."""
         poses = self.pose_source.batch(torch.Generator().manual_seed(0xCA11B), 8).to(self.device, self.compute_dtype)
         image = self.character_image().to(self.compute_dtype).expand(8, -1, -1, -1)
-        scales = quant.run_calibration(compute_outputs, teacher, image, poses)
+        scales = mesh.agree(quant.run_calibration(compute_outputs, teacher, image, poses))  # rank 0's, on every rank
         logger.info("int8 teacher (mode_%s): calibrated %d convs", tag, len(scales))
-        os.makedirs(self.config.prefix, exist_ok=True)
-        quant.save_scales(os.path.join(self.config.prefix, f"teacher_int8_scales_{tag}.json"), scales)
+        if mesh.rank() == 0:
+            os.makedirs(self.config.prefix, exist_ok=True)
+            quant.save_scales(os.path.join(self.config.prefix, f"teacher_int8_scales_{tag}.json"), scales)
+        mesh.barrier()
         return scales
+
+    def local_poses(self, gen: torch.Generator, batch_size: int) -> torch.Tensor:
+        """This rank's slice of the step's global pose batch, on the device:
+        every rank draws the same batch from the step's generator."""
+        return mesh.shard_batch(self.pose_source.batch(gen, batch_size), mesh.rank(), mesh.world_size()).to(self.device)
 
     def checkpoint_boundaries(self, total: int):
         return [self.examples_per_checkpoint * (i + 1) for i in range(total // self.examples_per_checkpoint)]
@@ -188,16 +234,16 @@ class DistillationJobs:
         config = self.config
         device = self.device
         mask = torch.from_numpy(recipes.load_face_mask_crop(config.face_mask_image_file_name)).to(device)
-        step = recipes.make_face_distill_step(self.face_teacher(), self.character_image(), mask, self.compute_dtype,
-                                              self.teacher_quant_12())
+        teacher, image, quant_12 = self.face_teacher(), self.character_image(), self.teacher_quant_12()
+        group = recipes.make_face_distill_group(teacher, image, mask, self.compute_dtype, quant_12)
         batch = config.face_morpher_batch_size
         cadence = config.face_morpher_num_training_examples_per_sample_output
 
         def init_module(gen):
             return siren.SirenFaceMorpher(self.face_student_cfg, generator=gen).to(device)
 
-        def train_step(student, optimizer, gen, lr, weights):
-            return step(student, optimizer, self.pose_source.batch(gen, batch).to(device), lr)
+        def train_group(student, optimizer, gens, lrs, weights):
+            return group(student, optimizer, [self.local_poses(gen, batch) for gen in gens], lrs)
 
         return Trainer(
             TrainerConfig(
@@ -207,10 +253,11 @@ class DistillationJobs:
                 examples_per_snapshot=self.examples_per_snapshot,
                 examples_per_sample_output=cadence,
                 random_seed=config.face_morpher_random_seed_0,
+                lookahead=recipes.default_lookahead(batch, mesh.world_size()),
             ),
             init_module=init_module,
             make_optimizer=recipes.make_adam,
-            train_step=train_step,
+            train_group=train_group,
             lr_fn=recipes.default_face_lr_fn(),
             sample_output_fn=self.write_face_samples if cadence is not None else None,
         )
@@ -250,16 +297,16 @@ class DistillationJobs:
         config = self.config
         phases = phases or recipes.default_body_phases()
         device = self.device
-        step = recipes.make_body_distill_step(self.body_teacher(), self.character_image(), self.compute_dtype,
-                                              self.student_mixed, self.teacher_quant_07())
+        args = (self.body_teacher(), self.character_image(), self.compute_dtype, self.student_mixed, self.teacher_quant_07())
+        group = recipes.make_body_distill_group(*args)
         batch = config.body_morpher_batch_size
         cadence = config.body_morpher_num_training_examples_per_sample_output
 
         def init_module(gen):
             return siren.SirenMorpher(self.body_student_cfg, generator=gen).to(device)
 
-        def train_step(student, optimizer, gen, lr, weights):
-            return step(student, optimizer, self.pose_source.batch(gen, batch).to(device), lr, weights)
+        def train_group(student, optimizer, gens, lrs, weights):
+            return group(student, optimizer, [self.local_poses(gen, batch) for gen in gens], lrs, weights)
 
         return Trainer(
             TrainerConfig(
@@ -269,10 +316,11 @@ class DistillationJobs:
                 examples_per_snapshot=self.examples_per_snapshot,
                 examples_per_sample_output=cadence,
                 random_seed=config.body_morpher_random_seed_0,
+                lookahead=recipes.default_lookahead(batch, mesh.world_size()),
             ),
             init_module=init_module,
             make_optimizer=recipes.make_adam,
-            train_step=train_step,
+            train_group=train_group,
             lr_fn=phases.learning_rate,
             loss_weights_fn=lambda examples_seen: phases.loss_weights(recipes.BODY_LOSS_TERMS, examples_seen),
             sample_output_fn=self.write_body_samples if cadence is not None else None,
@@ -315,6 +363,7 @@ class DistillationJobs:
         config = self.config
 
         @file_task(workspace, config.config_yaml_file_name(), [])
+        @_written_by_rank_0
         def create_config_yaml():
             config.save(config.config_yaml_file_name())
 
@@ -345,20 +394,24 @@ class DistillationJobs:
         body_final = student_tasks(config.body_morpher_prefix(), self.body_total_examples, body_trainer)
 
         @file_task(workspace, config.character_model_character_png_file_name(), [config.character_image_file_name])
+        @_written_by_rank_0
         def copy_character_image():
             copy_file(config.character_image_file_name, config.character_model_character_png_file_name())
 
         @file_task(workspace, config.character_model_face_morpher_file_name(), [face_final])
+        @_written_by_rank_0
         def export_face_morpher():
             self._export_student(face_final, siren.SirenFaceMorpher(self.face_student_cfg),
                                  config.character_model_face_morpher_file_name())
 
         @file_task(workspace, config.character_model_body_morpher_file_name(), [body_final])
+        @_written_by_rank_0
         def export_body_morpher():
             self._export_student(body_final, siren.SirenMorpher(self.body_student_cfg),
                                  config.character_model_body_morpher_file_name())
 
         @file_task(workspace, config.character_model_yaml_file_name(), [])
+        @_written_by_rank_0
         def create_character_model_yaml():
             CharacterModel(
                 config.character_model_character_png_file_name(),
@@ -394,11 +447,24 @@ class DistillationJobs:
         os.rmdir(partial)
 
 
+def _run_config_rank(config: DistillerConfig, target: str, kwargs: dict) -> None:
+    run_config(config, target, **kwargs)
+
+
 def run_config(config: DistillerConfig, target: str = "all", **kwargs) -> None:
     """The distill entry (reference app/distill.py:8-25): define the DAG and
     run ``target``, ``all`` (the whole pipeline, the default), ``face`` or
     ``body`` (that student's training task alone).  ``kwargs`` go to
-    ``DistillationJobs``."""
+    ``DistillationJobs``.  With ``num_gpus`` > 1 outside a process group and
+    that many CUDA devices visible (and the device CUDA), the DAG runs in
+    ``num_gpus`` ranks started here over NCCL; a rank that fails fails the
+    call."""
+    device = torch.device(kwargs.get("device", "cuda"))
+    if (config.num_gpus > 1 and not mesh.is_distributed() and device.type == "cuda"
+            and torch.cuda.device_count() >= config.num_gpus):
+        logger.info("num_gpus = %d: starting %d ranks over NCCL", config.num_gpus, config.num_gpus)
+        mesh.launch(_run_config_rank, config.num_gpus, "nccl", args=(config, target, kwargs))
+        return
     jobs = DistillationJobs(config, **kwargs)
     workspace = Workspace()
     jobs.define_tasks(workspace)

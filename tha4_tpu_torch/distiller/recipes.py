@@ -14,10 +14,17 @@ Both use Adam(0.9, 0.999, eps 1e-8) with the lr set before every step
 (``torch.optim.Adam`` makes the update of optax ``scale_by_adam`` followed
 by p -= lr * u).  One step: the frozen teacher labels the batch (no
 gradient, the teacher's dtype; int8 convolutions under ``teacher_quant``,
-the scales ``ops.quant`` calibrated), then one exact student update.  The JAX
-package can label K batches ahead in one teacher call (lookahead) to fill a
-chip at a small per-chip batch; on one card at batch 8 it uses K = 1, which
-is what runs here.
+the scales ``ops.quant`` calibrated), then one exact student update.
+
+Teacher lookahead (the JAX package's ``lookahead``): the teacher is frozen,
+so a group of K consecutive steps can be labelled in one teacher call at
+K times the batch, then K exact student updates follow in order; the
+update stream is K = 1's, only the teacher's batch grows.
+``default_lookahead`` sizes K so that each rank's teacher batch reaches
+``TEACHER_SATURATION_BATCH``: at batch 8 on one card K is 1; at 4 a rank
+(batch 8 over 2 ranks) K is 2.  The student's forward goes through
+``parallel.mesh.apply``, so under a ``data_parallel`` replica its backward
+averages the gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from tha4_tpu_torch.models import siren
 from tha4_tpu_torch.ops import quant
+from tha4_tpu_torch.parallel import mesh
 from tha4_tpu_torch.poser.modes import mode_07, mode_12
 from tha4_tpu_torch.training import losses
 from tha4_tpu_torch.training.schedules import TrainingPhase, TrainingPhases, step_lr_schedule
@@ -43,6 +51,23 @@ BODY_LOSS_TERMS = ("full_blended", "full_warped", "full_grid_change", "full_colo
 FACE_MORPHER_TOTAL_EXAMPLES = 1_000_000
 BODY_MORPHER_TOTAL_EXAMPLES = 1_500_000
 EXAMPLES_PER_CHECKPOINT = 100_000
+
+
+# The per-rank teacher batch that lookahead fills up to: the recipes' batch,
+# at which one card runs the shipped recipe with K = 1
+# (``tha4_tpu/distiller/recipes.py:77-89``, where the value was chosen for
+# the TPU).  On an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase
+# 16) a bf16 teacher call of 8 poses labels a pose in 0.48-0.52 (body) and
+# 0.61-0.63 (face) of the time a call of 4 takes; whether more than 8 would
+# pay again there is not measured.
+TEACHER_SATURATION_BATCH = 8
+
+
+def default_lookahead(batch_size: int, world_size: int = 1) -> int:
+    """The lookahead K that brings each rank's teacher batch, ``batch_size
+    / world_size``, up to ``TEACHER_SATURATION_BATCH`` (1: plain steps)."""
+    per_rank = max(1, batch_size // max(1, world_size))
+    return max(1, TEACHER_SATURATION_BATCH // per_rank)
 
 
 def default_body_phases() -> TrainingPhases:
@@ -99,8 +124,8 @@ def face_loss(student: siren.SirenFaceMorpher, target: torch.Tensor, mask: torch
     """(total, named) for one batch.  The student's pose is rounded to the
     compute dtype first (as the JAX recipe casts it) and widened to f32 for
     the kernel; target and prediction are widened to f32 for the loss."""
-    pose = poses[:, : student.cfg.pose_size].to(dtype).float()
-    return face_loss_terms(siren.siren_face_morpher_train_apply(student, pose, dtype), target, mask)
+    pose = poses[:, : mesh.unwrap(student).cfg.pose_size].to(dtype).float()
+    return face_loss_terms(mesh.apply(student, siren.siren_face_morpher_train_apply, pose, dtype), target, mask)
 
 
 def face_loss_terms(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor):
@@ -127,15 +152,32 @@ def student_update(student, optimizer: torch.optim.Optimizer, target, mask, pose
     return adam_step(optimizer, *face_loss(student, target, mask, poses, dtype), lr)
 
 
+def make_face_distill_group(teacher: mode_12.FaceTeacher, image: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype,
+                            teacher_quant: Optional[List[dict]] = None):
+    """group(student, optimizer, poses_list, lrs) -> the last step's named
+    losses: the teacher labels the K batches of ``poses_list`` in one call
+    (int8 under ``teacher_quant``), then K student updates, batch j at
+    ``lrs[j]``."""
+
+    def group(student, optimizer, poses_list, lrs):
+        poses = torch.cat(poses_list) if len(poses_list) > 1 else poses_list[0]
+        targets = face_teacher_targets(teacher, image, poses, dtype, teacher_quant).split([len(p) for p in poses_list])
+        for target, batch, lr in zip(targets, poses_list, lrs):
+            named = student_update(student, optimizer, target, mask, batch, lr, dtype)
+        return named
+
+    return group
+
+
 def make_face_distill_step(teacher: mode_12.FaceTeacher, image: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype,
                            teacher_quant: Optional[List[dict]] = None):
     """step(student, optimizer, poses, lr) -> named losses: the teacher's
     labels for ``poses`` (int8 under ``teacher_quant``), then one student
     update."""
+    group = make_face_distill_group(teacher, image, mask, dtype, teacher_quant)
 
     def step(student, optimizer, poses, lr):
-        target = face_teacher_targets(teacher, image, poses, dtype, teacher_quant)
-        return student_update(student, optimizer, target, mask, poses, lr, dtype)
+        return group(student, optimizer, [poses], [lr])
 
     return step
 
@@ -185,8 +227,29 @@ def body_loss_terms(outs: Sequence[torch.Tensor], targets: Sequence[torch.Tensor
 def body_loss(student: siren.SirenMorpher, targets, poses: torch.Tensor, weights: Mapping[str, float], dtype: torch.dtype, mixed: bool):
     """(total, named) for one batch: the student's five outputs on the
     teacher's face_morphed_full (in ``dtype``) and the poses."""
-    outs = siren.siren_morpher_train_apply(student, targets[3].to(dtype), poses, dtype, mixed)
+    outs = mesh.apply(student, siren.siren_morpher_train_apply, targets[3].to(dtype), poses, dtype, mixed)
     return body_loss_terms(outs, targets, weights)
+
+
+def make_body_distill_group(teacher: mode_07.Teacher, image: torch.Tensor, dtype: torch.dtype, mixed: bool = False,
+                            teacher_quant: Optional[List[dict]] = None):
+    """group(student, optimizer, poses_list, lrs, weights_list) -> the last
+    step's named losses: the teacher labels the K batches in one call (int8
+    under ``teacher_quant``), then K student updates, batch j at ``lrs[j]``
+    with the loss weights ``weights_list[j]`` (``{term: weight}`` of
+    ``BODY_LOSS_TERMS``)."""
+
+    def group(student, optimizer, poses_list, lrs, weights_list):
+        poses = torch.cat(poses_list) if len(poses_list) > 1 else poses_list[0]
+        sizes = [len(p) for p in poses_list]
+        labels = [t.split(sizes) for t in body_teacher_targets(teacher, image, poses, dtype, teacher_quant)]
+        for j, (batch, lr, weights) in enumerate(zip(poses_list, lrs, weights_list)):
+            optimizer.zero_grad(set_to_none=True)
+            targets = tuple(t[j] for t in labels)
+            named = adam_step(optimizer, *body_loss(student, targets, batch, weights, dtype, mixed), lr)
+        return named
+
+    return group
 
 
 def make_body_distill_step(teacher: mode_07.Teacher, image: torch.Tensor, dtype: torch.dtype, mixed: bool = False,
@@ -195,10 +258,9 @@ def make_body_distill_step(teacher: mode_07.Teacher, image: torch.Tensor, dtype:
     teacher's labels for ``poses`` (int8 under ``teacher_quant``), then one
     student update with the loss weights ``{term: weight}`` of
     ``BODY_LOSS_TERMS``."""
+    group = make_body_distill_group(teacher, image, dtype, mixed, teacher_quant)
 
     def step(student, optimizer, poses, lr, weights):
-        targets = body_teacher_targets(teacher, image, poses, dtype, teacher_quant)
-        optimizer.zero_grad(set_to_none=True)
-        return adam_step(optimizer, *body_loss(student, targets, poses, weights, dtype, mixed), lr)
+        return group(student, optimizer, [poses], [lr], [weights])
 
     return step

@@ -11,12 +11,19 @@ Ctrl-C any time, rerun the same command):
   * CommandTask always runs after its dependencies (:41-47);
   * Workspace does a DFS cycle check on task creation (workspace.py:104-120)
     and memoizes done-ness within a session (:129-146).
+
+Under data parallelism every rank runs the same DAG: rank 0 decides whether
+each task needs to run and broadcasts its decision (``parallel.mesh.agree``),
+so that every rank enters the same training tasks, whose steps are
+collectives.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Callable, Dict, List, Optional
+
+from tha4_tpu_torch.parallel import mesh
 
 
 class Task:
@@ -130,7 +137,7 @@ class Workspace:
         task = self.get_task(name)
         for dep in task.dependencies:
             self.run(dep)
-        if task.needs_to_run():
+        if mesh.agree(task.needs_to_run()):
             task.run()
         self._session_done.add(name)
 

@@ -16,6 +16,11 @@ written one never passes ``can_load``.  The contents are the port's own
 (a torch state dict and ``torch.optim`` state, not JAX pytrees), and the two
 packages do not load each other's checkpoints.  The optimizer's
 hyperparameters are not stored: they come from the code, as optax's do.
+
+Under data parallelism the trainer has rank 0 write the unwrapped module's
+state and every rank load the same directory after that write, so a state
+holds nothing of the world size: one written by two ranks loads in one
+process, and the other way round.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 from torch import nn
 
 EXAMPLES_FILE = "examples_seen_so_far.txt"
-RNG_FILE = "rng_state_00000000.npz"  # one process until the data-parallel slice
+RNG_FILE = "rng_state_00000000.npz"  # rank 0's; every rank's stream key is the same
 SEP = "\x1f"  # between a parameter index and a state name in optimizer_*.npz
 
 
