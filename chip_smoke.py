@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training, distillation to a character model, the verification slice (the int8 teacher, tha4-torch-verify, tha4-torch-eval) and data-parallel distillation on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training, distillation to a character model, the verification slice (the int8 teacher, tha4-torch-verify, tha4-torch-eval), data-parallel distillation, and the block zoo, native codec and native mocap receiver on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -163,7 +163,22 @@ Phases, one or more lines each:
     ``run_config`` write each checkpoint and export once (rank 0), and a
     run stopped at the body's snapshot and rerun exports the same ``.pt``
     files bit for bit.  NCCL across several GPUs needs more than one card
-    and is not checked here.
+    and is not checked here;
+17. the rest of the JAX package's twins (``python3 chip_smoke.py --phase
+    rest`` runs it alone after phases 1-2): (a) the block zoo at the face
+    morpher's published widths (192^2, 4 -> 64 channels, bottleneck 24^2
+    with 6 resnet blocks, max 512), batch 8: ``ResizeConvEncoderDecoder``
+    and ``ResizeConvUNet`` (instance norm with spectral norm on and off, and
+    separable with spectral norm), both upsample modes; f32 on the card
+    against the same module on the CPU (TF32 off), bf16 against f32, the
+    ``sn_u`` vectors after three ``advance_spectral`` steps against the
+    CPU's; ms a forward and a forward + backward + Adam step, peak memory;
+    (b) a 512^2 RGBA ``load_image_hwc``, the native codec against numpy,
+    ms each; (c) the iFacialMocap receiver, native and socket, fed by a
+    loopback sender at 240 packets/s, read between bf16 student frames for
+    300 frames: each packet's age when read (p50, p99) and the share of
+    reads that got the newest packet sent; then ``tha4-torch-puppeteer
+    --source udp`` fed by that sender, exit 0 on the native drain thread.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K2, K3's forward and grid backward, K4-K6, the fold, Q1, and K7 and the TPU
@@ -732,11 +747,13 @@ def _subprocess(cmd, what: str, timeout: int = 300) -> list:
     return proc.stdout.strip().splitlines()
 
 
-def _puppeteer_run(what: str, args: list) -> dict:
+def _puppeteer_run(what: str, args: list, expect: str = None) -> dict:
     """``python -m tha4_tpu_torch.apps.puppeteer --benchmark ...`` on the card:
     its benchmark line, with the rendered frames and the kernel launches of
-    the process (the warm-up frame included)."""
+    the process (the warm-up frame included); ``expect``, a line it must print."""
     lines = _subprocess(["tha4_tpu_torch.apps.puppeteer", *args, "--benchmark", "--device", "cuda"], what)
+    if expect is not None and not any(expect in line for line in lines):
+        raise AssertionError(f"{what}: no line {expect!r} in its output:\n" + "\n".join(lines))
     line = next(l for l in lines if l.startswith("frames="))
     print(f"  {line}")
     fields = re.search(r"frames=(\d+) rendered=(\d+) latency mean=([\d.]+)ms p50=([\d.]+)ms p99=([\d.]+)ms "
@@ -3087,6 +3104,309 @@ def phase_ddp(torch, workdir: str, teacher_params, card: str) -> dict:
             "teacher_ms_a_pose": teacher_ms, "ranks_s": ranks_s, "nccl_s": nccl_s, "seconds": seconds, "card": card}
 
 
+# The face morpher's published widths (tha4_tpu/models/face_morpher.py:38-44),
+# the configuration of phase 17's resize-conv nets, at batch 8.
+REST_NET = dict(image_size=192, input_channels=4, start_channels=64, bottleneck_image_size=24, num_bottleneck_blocks=6,
+                max_channels=512)
+REST_BATCH = 8
+REST_CPU_BATCH = 1  # the card's first sample against the CPU (every norm is per sample)
+# Phase 17's bars.  f32 card against the same module on the CPU (TF32 off),
+# error over each level's largest |CPU| value: two f32 orders of sums
+# through 14-16 convs, 100x the ~1e-6 the teacher's f32 U-Nets read.  bf16
+# against f32 on the card, over each level's largest and mean |f32| value:
+# every conv and norm output rounded to bf16 (2^-8) through 14-16 conv and
+# norm layers, a few percent in all; about three times the readings on an
+# H100 (0.021-0.036 and 0.021-0.031).  sn_u after three advance_spectral
+# steps, card against CPU: unit vectors of length <= 512.
+REST_F32_REL = 1e-4
+REST_BF16_MAX_REL = 0.1
+REST_BF16_MEAN_REL = 0.075
+REST_SN_U_ATOL = 1e-5
+REST_SN_STEPS = 3
+CODEC_ATOL = 2e-6  # tests/test_native_codec.py:27
+MOCAP_RATE = 240.0  # packets a second from the loopback sender
+MOCAP_FRAMES = 300
+MOCAP_PORT = 49350  # the in-process receivers; the puppeteer listens on 49983
+
+
+def _rest_nets():
+    """Phase 17's networks: both resize-conv nets at REST_NET, both upsample
+    modes, the U-Net under three block configurations."""
+    from tha4_tpu_torch.models import resize_conv as R
+    from tha4_tpu_torch.ops import blocks as B
+
+    blocks = {"instance+sn": B.BlockConfig(use_spectral_norm=True), "instance": B.BlockConfig(),
+              "separable+sn": B.BlockConfig(use_spectral_norm=True, separable=True)}
+    nets = {}
+    for mode in ("bilinear", "nearest"):
+        nets[f"encoder_decoder/{mode}"] = lambda g, m=mode: R.ResizeConvEncoderDecoder(
+            R.ResizeConvEncoderDecoderConfig(**REST_NET, upsample_mode=m), g)
+        for name, block in blocks.items():
+            nets[f"unet/{name}/{mode}"] = lambda g, m=mode, b=block: R.ResizeConvUNet(
+                R.ResizeConvUNetConfig(**REST_NET, upsample_mode=m, block=b), g)
+    return nets
+
+
+def _rel(a, b, reduce) -> float:
+    return float(reduce((a.float() - b.float()).abs()) / reduce(b.float().abs()))
+
+
+def _zoo_macs(torch, module, x) -> int:
+    """Multiply-adds of every conv in one forward of ``module`` on ``x``,
+    from the shapes: each output (a transposed conv: each input) element
+    takes one weight slice, weight[0]."""
+    from tha4_tpu_torch.ops.blocks import WrappedConv
+
+    total = [0]
+
+    def count(conv, inputs, out):
+        total[0] += (inputs[0] if conv.transpose else out).numel() * conv.weight[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in module.modules() if isinstance(m, WrappedConv)]
+    try:
+        with torch.no_grad():
+            module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _zoo_train_ms(torch, module, x) -> tuple:
+    """ms a forward + backward + Adam step (CUDA events, median of 5) and the
+    peak device memory in GiB over those steps."""
+    opt = torch.optim.Adam(module.parameters(), lr=1e-4)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = sum((o.float() ** 2).mean() for o in module(x))
+        loss.backward()
+        opt.step()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(step, iters=5, warmup=2)
+    return ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _phase_zoo(torch) -> dict:
+    """17(a): the block zoo at the face morpher's widths on the card."""
+    from tha4_tpu_torch.ops import blocks as B
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    x_cpu = torch.randn(REST_BATCH, REST_NET["input_channels"], REST_NET["image_size"], REST_NET["image_size"],
+                        generator=gen)
+    x = x_cpu.cuda()
+    size, shapes = REST_NET["bottleneck_image_size"], []
+    while size <= REST_NET["image_size"]:
+        channels = min(REST_NET["start_channels"] * REST_NET["image_size"] // size, REST_NET["max_channels"])
+        shapes.append((REST_BATCH, channels, size, size))
+        size *= 2
+    out = {}
+    for i, (name, make) in enumerate(_rest_nets().items()):
+        cpu = make(torch.Generator().manual_seed(SEED + 170 + i))
+        card = copy.deepcopy(cpu).cuda()
+        with torch.no_grad():
+            ref = cpu(x_cpu[:REST_CPU_BATCH])
+            f32 = card(x)
+            bf16 = card(x.bfloat16())
+        if [tuple(o.shape) for o in f32] != shapes or \
+                any(o.dtype != torch.bfloat16 for o in bf16) or not all(bool(torch.isfinite(o).all()) for o in f32 + bf16):
+            raise AssertionError(f"{name}: outputs {[tuple(o.shape) for o in f32]} / {[o.dtype for o in bf16]}, or not finite")
+        r = {
+            "f32_rel": max(_rel(o[:REST_CPU_BATCH].cpu(), c, torch.max) for o, c in zip(f32, ref)),
+            "bf16_max_rel": max(_rel(b, f, torch.max) for b, f in zip(bf16, f32)),
+            "bf16_mean_rel": max(_rel(b, f, torch.mean) for b, f in zip(bf16, f32)),
+        }
+        del f32, bf16, ref
+        if not r["f32_rel"] <= REST_F32_REL:
+            raise AssertionError(f"{name}: f32 card vs CPU {r['f32_rel']:.3e} over {REST_F32_REL}")
+        if not (r["bf16_max_rel"] <= REST_BF16_MAX_REL and r["bf16_mean_rel"] <= REST_BF16_MEAN_REL):
+            raise AssertionError(f"{name}: bf16 vs f32 {r['bf16_max_rel']:.3e} / {r['bf16_mean_rel']:.3e} over "
+                                 f"{REST_BF16_MAX_REL} / {REST_BF16_MEAN_REL}")
+        sn_cpu = {k: v for k, v in cpu.state_dict().items() if k.endswith("sn_u")}
+        if sn_cpu:
+            start = {k: v.clone() for k, v in sn_cpu.items()}
+            for _ in range(REST_SN_STEPS):
+                B.advance_spectral(cpu)
+                B.advance_spectral(card)
+            sn_card = {k: v for k, v in card.state_dict().items() if k.endswith("sn_u")}
+            r["sn_u_err"] = max(float((sn_card[k].cpu() - v).abs().max()) for k, v in sn_cpu.items())
+            r["sn_u_moved"] = max(float((v - start[k]).abs().max()) for k, v in sn_cpu.items())
+            r["sn_convs"] = len(sn_cpu)
+            if not (r["sn_u_err"] <= REST_SN_U_ATOL and r["sn_u_moved"] > 1e-3):
+                raise AssertionError(f"{name}: sn_u after {REST_SN_STEPS} steps, card vs CPU {r['sn_u_err']:.3e} "
+                                     f"(bar {REST_SN_U_ATOL}), moved {r['sn_u_moved']:.3e}")
+        for tag, xt in (("f32", x), ("bf16", x.bfloat16())):
+            with torch.no_grad():
+                r[f"fwd_ms_{tag}"] = _time_ms(lambda: card(xt), iters=10, warmup=2)
+            r[f"step_ms_{tag}"], r[f"peak_gib_{tag}"] = _zoo_train_ms(torch, card, xt)
+        r["params_m"] = sum(p.numel() for p in cpu.parameters()) / 1e6
+        r["gmacs"] = _zoo_macs(torch, card, x) / 1e9
+        r["products_bound_ms_bf16"] = 2e3 * r["gmacs"] * 1e9 / PEAK_FLOPS["bf16"]
+        print(f"zoo {name} ({r['params_m']:.2f} M params, {r['gmacs']:.1f} G multiply-adds a forward, the products "
+              f"{r['products_bound_ms_bf16']:.3f} ms at the bf16 peak): f32 card vs CPU {r['f32_rel']:.3e}, bf16 vs f32 max "
+              f"{r['bf16_max_rel']:.3e} mean {r['bf16_mean_rel']:.3e}"
+              + (f", sn_u x{r['sn_convs']} after {REST_SN_STEPS} steps card vs CPU {r['sn_u_err']:.3e}" if sn_cpu else "")
+              + f"; fwd {r['fwd_ms_f32']:.3f} / {r['fwd_ms_bf16']:.3f} ms, fwd+bwd+Adam {r['step_ms_f32']:.3f} / "
+              f"{r['step_ms_bf16']:.3f} ms (f32 / bf16, B={REST_BATCH}), peak {r['peak_gib_f32']:.2f} / "
+              f"{r['peak_gib_bf16']:.2f} GiB")
+        out[name] = r
+        del cpu, card
+        torch.cuda.empty_cache()
+    return out
+
+
+def _phase_codec() -> dict:
+    """17(b): a 512^2 RGBA decode, native against numpy."""
+    import PIL.Image
+
+    from tha4_tpu_torch.core import imagecodec
+
+    rgba = np.random.default_rng(SEED).integers(0, 256, size=(512, 512, 4), dtype=np.uint8)
+    rgba[..., 3] = np.maximum(rgba[..., 3], 1)
+    pil = PIL.Image.fromarray(rgba, "RGBA")
+    native = imagecodec.load_image_hwc(pil)
+    plain = imagecodec.load_image_hwc(pil, native=False)
+    err = float(np.abs(native - plain).max())
+    if native.shape != (512, 512, 4) or not err <= CODEC_ATOL:
+        raise AssertionError(f"codec: native {native.shape} vs numpy, max_abs_err {err} over {CODEC_ATOL}")
+    ms = {}
+    for tag, native_flag in (("native", True), ("numpy", False)):
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            imagecodec.load_image_hwc(pil, native=native_flag)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[tag] = statistics.median(times)
+    print(f"codec: 512^2 RGBA load_image_hwc native vs numpy max_abs_err {err:.3e}; {ms['native']:.3f} ms native, "
+          f"{ms['numpy']:.3f} ms numpy (median of 20, host clock, decode from a PIL image)")
+    return {"max_abs_err": err, "ms": ms}
+
+
+class _MocapSender:
+    """A loopback iFacialMocap sender at MOCAP_RATE packets a second, each
+    packet's sequence number in a blendshape the converter ignores
+    (tongueOut = seq / 100) and jawOpen stepping through the converter's
+    unclamped range (0.1-0.4), so that nearly every packet changes the pose;
+    records each packet's send time."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.port = port
+        self.sent = []  # send time by sequence number
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        import socket
+
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            t0 = time.perf_counter()
+            while not self._stop.is_set():
+                seq = len(self.sent)
+                packet = f"tongueOut&{seq}|jawOpen&{11 + seq % 29}|=head#1.0,2.0,3.0,0,0,0|".encode()
+                self.sent.append(time.perf_counter())
+                tx.sendto(packet, ("127.0.0.1", self.port))
+                self._stop.wait(max(0.0, t0 + (seq + 1) / MOCAP_RATE - time.perf_counter()))
+        finally:
+            tx.close()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        if self._thread.is_alive():
+            raise AssertionError("the mocap sender did not stop")
+
+
+def _phase_mocap(torch, workdir: str) -> dict:
+    """17(c): the receiver, native and socket, between student frames on the
+    card; then tha4-torch-puppeteer --source udp."""
+    from tha4_tpu_torch.charmodel import CharacterModel
+    from tha4_tpu_torch.charmodel.synthetic import write_random_character_model
+    from tha4_tpu_torch.mocap import ifacialmocap_constants as C
+    from tha4_tpu_torch.mocap.ifacialmocap import IFacialMocapReceiver
+    from tha4_tpu_torch.mocap.ifacialmocap_pose_converter import IFacialMocapPoseConverter
+
+    yaml_path = write_random_character_model(os.path.join(workdir, "model"), seed=SEED)
+    model = CharacterModel.load(yaml_path)
+    poser = model.get_poser(torch.bfloat16, "cuda")
+    image = torch.from_numpy(model.get_character_image()).cuda()
+    converter = IFacialMocapPoseConverter()
+    out = {}
+    for tag, use_native in (("native", True), ("socket", False)):
+        rx = IFacialMocapReceiver(port=MOCAP_PORT, use_native=use_native)
+        rx.start()
+        native = rx.draining_natively
+        ages, newest, empty, frame_ms = [], 0, 0, []
+        try:
+            with _MocapSender(MOCAP_PORT) as sender:
+                time.sleep(0.05)
+                blend = None
+                for _ in range(MOCAP_FRAMES):
+                    got = rx.read_pose()
+                    t_read = time.perf_counter()
+                    if got is None:
+                        empty += 1
+                    else:
+                        seq = round(got[C.TONGUE_OUT] * 100)
+                        ages.append((t_read - sender.sent[seq]) * 1e3)
+                        newest += seq == len(sender.sent) - 1
+                        blend = got
+                    if blend is not None:
+                        t0 = time.perf_counter()
+                        poser.pose(image, np.asarray(converter.convert(blend), np.float32))
+                        torch.cuda.synchronize()
+                        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            rx.close()
+        if native != use_native or len(ages) < MOCAP_FRAMES // 4:
+            raise AssertionError(f"receiver {tag}: native drain {native}, {len(ages)} packets over {MOCAP_FRAMES} reads")
+        out[tag] = {"age_ms_p50": float(np.percentile(ages, 50)), "age_ms_p99": float(np.percentile(ages, 99)),
+                    "newest_share": newest / len(ages), "reads": MOCAP_FRAMES, "packets": len(ages), "empty_reads": empty,
+                    "frame_ms_p50": float(np.percentile(frame_ms, 50))}
+        print(f"receiver {tag}: {MOCAP_FRAMES} reads between bf16 student frames ({out[tag]['frame_ms_p50']:.3f} ms "
+              f"median), sender at {MOCAP_RATE:.0f} packets/s: {len(ages)} packets, {empty} reads with nothing new; "
+              f"age p50 {out[tag]['age_ms_p50']:.3f} ms, p99 {out[tag]['age_ms_p99']:.3f} ms; newest packet sent "
+              f"in {out[tag]['newest_share']:.3f} of reads")
+    with _MocapSender(49983):
+        out["puppeteer"] = _puppeteer_run("puppeteer --source udp (native receiver)", [
+            "--model", yaml_path, "--source", "udp", "--frames", "30", "--dtype", "bf16"],
+            expect="Listening for iFacialMocap packets on UDP 49983 (native drain thread)")
+    return out
+
+
+def phase_rest(torch) -> dict:
+    """Phase 17: the block zoo, the native codec and the native receiver."""
+    from tha4_tpu_torch.utils import precision
+
+    t0 = time.perf_counter()
+    precision.set_full_f32()
+    zoo = _phase_zoo(torch)
+    codec = _phase_codec()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rest_") as workdir:
+        mocap = _phase_mocap(torch, workdir)
+    seconds = time.perf_counter() - t0
+    print(f"phase 17 (the block zoo, codec, receiver): {seconds:.1f} s; the CPU references on "
+          f"{torch.get_num_threads()} threads")
+    return {"zoo": zoo, "codec": codec, "mocap": mocap, "seconds": seconds}
+
+
+def main_rest_alone(torch) -> int:
+    """``--phase rest``: phase 17 alone, after the device and the build."""
+    rest = phase_rest(torch)
+    print(json.dumps(rest))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def _body_inputs(torch, workdir: str) -> tuple:
     """The distiller config (synthetic character and mask), the seeded
     full-width random mode_07 and the character image on the card."""
@@ -3141,8 +3461,10 @@ def main() -> int:
         return main_int8_alone(torch)
     if sys.argv[1:] == ["--phase", "ddp"]:
         return main_ddp_alone(torch, card)
+    if sys.argv[1:] == ["--phase", "rest"]:
+        return main_rest_alone(torch)
     if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --phase int8 or --phase ddp")
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --phase int8, --phase ddp or --phase rest")
 
     from tha4_tpu_torch.models import siren
 
@@ -3172,6 +3494,8 @@ def main() -> int:
         int8 = phase_int8(torch, workdir, teacher_params, image)
         torch.cuda.empty_cache()
         ddp = phase_ddp(torch, workdir, teacher_params, card)
+    torch.cuda.empty_cache()
+    rest = phase_rest(torch)
 
     k5_mixed = k5["f32->bf16"]
     k6_main = k6["shapes"][K6_MAIN_SHAPE]
@@ -3389,6 +3713,7 @@ def main() -> int:
         "int8": {k: int8[k] for k in ("labels", "teacher_ms", "distill", "eval", "seconds")}
         | {"verify_s": int8["verify"]["s"], "verify_int8": int8["verify"]["checks"]["int8 teacher fidelity"]},
         "ddp": {k: ddp[k] for k in ("compared", "peak_gb", "teacher_ms_a_pose", "ranks_s", "nccl_s", "seconds")},
+        "rest": rest,
     }
     for entry in kernels["kernels"]:
         if set(KERNEL_KEYS) - set(entry) or not entry["launches"] > 0:

@@ -11,8 +11,8 @@ _SCRIPT = r"""
 import importlib, pkgutil, sys
 import tha4_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tha4_tpu_torch.__path__, "tha4_tpu_torch.")]
-# The face- and body-distillation, teacher-poser, serving, distill-to-a-character-model, verification and
-# data-parallel slices' modules are among them.
+# The face- and body-distillation, teacher-poser, serving, distill-to-a-character-model, verification,
+# data-parallel and block-zoo/native slices' modules are among them.
 needed = {"ops.nn", "models.encoder_decoder", "models.eyebrow", "models.face_morpher", "poser.modes.mode_12",
           "training.losses", "training.schedules", "training.checkpoint", "training.trainer",
           "distiller.config", "distiller.pose_dataset", "distiller.recipes", "distiller.pipeline",
@@ -25,7 +25,9 @@ needed = {"ops.nn", "models.encoder_decoder", "models.eyebrow", "models.face_mor
           "apps.web_poser", "tasks.workspace", "training.tensorboard", "distiller.sample_output", "distiller.param_help",
           "apps.distill", "apps.tasks_cli", "apps.distiller_ui",
           "ops.quant", "ops.cuda_int8_conv", "apps.evaluate", "apps.verify", "utils.threefry",
-          "parallel.mesh", "training.optimizers", "training.ema", "training.two_networks", "training.swarm"}
+          "parallel.mesh", "training.optimizers", "training.ema", "training.two_networks", "training.swarm",
+          "native", "native.loader", "core.imagecodec", "tasks.indexed", "core.datasets", "ops.spectral_norm",
+          "ops.norms_extra", "ops.separable", "ops.blocks", "models.resize_conv"}
 assert {"tha4_tpu_torch." + n for n in needed} <= set(names), sorted(needed - {n[len("tha4_tpu_torch."):] for n in names})
 for name in names:
     importlib.import_module(name)

@@ -133,10 +133,11 @@ def _read_until(rx, predicate, seconds=5.0):
 
 
 def test_receiver_udp_roundtrip():
-    """The port's receiver on a port of its own (the kernel picks it):
-    the freshest packet wins, None when nothing new arrived, and a partial
-    packet comes back completed with the default pose."""
-    rx = ifacialmocap.IFacialMocapReceiver(port=0)
+    """The port's socket receiver (``use_native=False``; the native one is
+    tested in tests/test_torch_native.py) on a port of its own (the kernel
+    picks it): the freshest packet wins, None when nothing new arrived, and
+    a partial packet comes back completed with the default pose."""
+    rx = ifacialmocap.IFacialMocapReceiver(port=0, use_native=False)
     rx.start()
     port = rx.socket.getsockname()[1]
     tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)

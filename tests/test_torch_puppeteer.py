@@ -248,3 +248,35 @@ def test_pairs_tool_alternates_the_two_sides(model_yaml, capsys):
     last = lines[-1]
     assert last["pairs"] == 2 and 0 <= last["a_higher_fps"] <= 2 and last["card"] == "cpu"
     assert last["a"]["fps"] == statistics.median(r["fps"] for r in lines[:-1] if r["side"] == "a")
+
+
+def test_udp_source_on_the_native_receiver_and_a_one_frame_benchmark(model_yaml, capsys):
+    """``--source udp`` drains on the native thread (the app says so) and
+    renders what a loopback sender streams to port 49983; a benchmark of
+    one rendered frame prints its line (it used to index an empty list)."""
+    import socket
+    import threading
+
+    stop = threading.Event()
+
+    def send():
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+            seq = 0
+            while not stop.wait(0.005):
+                tx.sendto(f"jawOpen&{11 + seq % 29}|=head#1.0,2.0,3.0,0,0,0|".encode(), ("127.0.0.1", 49983))
+                seq += 1
+
+    sender = threading.Thread(target=send, daemon=True)
+    sender.start()
+    try:
+        assert puppeteer.main(["--model", model_yaml, "--source", "udp", "--frames", "3", "--dtype", "exact",
+                               "--benchmark", "--device", "cpu"]) == 0
+    finally:
+        stop.set()
+        sender.join(timeout=10)
+    out = capsys.readouterr().out
+    assert "Listening for iFacialMocap packets on UDP 49983 (native drain thread)..." in out
+    assert "frames=3 rendered=" in out
+    assert puppeteer.main(["--model", model_yaml, "--source", "synthetic", "--frames", "1", "--dtype", "exact",
+                           "--benchmark", "--device", "cpu"]) == 0
+    assert "frames=1 rendered=1 latency" in capsys.readouterr().out

@@ -536,7 +536,8 @@ def main(argv=None, mediapipe_landmarker=None) -> int:
 
         receiver = IFacialMocapReceiver(capture_address=args.capture_address)
         receiver.start()
-        print("Listening for iFacialMocap packets on UDP 49983...")
+        drain = "native drain thread" if receiver.draining_natively else "socket"
+        print(f"Listening for iFacialMocap packets on UDP {receiver.port} ({drain})...")
     elif args.source == "mediapipe":
         if mediapipe_landmarker is None:
             try:
@@ -655,7 +656,8 @@ def main(argv=None, mediapipe_landmarker=None) -> int:
 
     if args.benchmark and latencies:
         wall = time.perf_counter() - t_loop_start
-        lat = np.asarray(latencies[1:]) * 1000.0
+        # The first frame's latency is dropped, unless it is the only one.
+        lat = np.asarray(latencies[1:] or latencies) * 1000.0
         print(
             f"frames={frame_count} rendered={fetched_count} "
             f"latency mean={lat.mean():.2f}ms p50={np.percentile(lat, 50):.2f}ms "

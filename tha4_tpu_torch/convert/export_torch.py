@@ -186,3 +186,71 @@ def teacher_07_state_dicts(params: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
 def save_module_pt(module: nn.Module, file_name: str) -> None:
     """Write a student module's state dict in the reference ``.pt`` format."""
     torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, file_name)
+
+
+# ---------------------------------------------------------------------------
+# The block zoo (ops.blocks, ops.separable, ops.norms_extra, ops.spectral_norm,
+# models.resize_conv): the port's attribute names are the JAX param keys, so
+# one walk over the JAX params, guided by the port module, converts each leaf
+# family.
+# ---------------------------------------------------------------------------
+
+
+def zoo_conv_state(p: Dict, conv: nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX conv's ``w`` (HWIO; a transposed conv's: the forward conv over
+    the 2x-dilated input), ``b`` and ``sn_u`` -> the port conv's ``weight``
+    (OIHW; a transposed conv's torch (I, O / groups, kh, kw), flipped),
+    ``bias`` and ``sn_u`` (unchanged: it indexes output channels)."""
+    w = np.asarray(p["w"], np.float32)
+    if getattr(conv, "transpose", False) or isinstance(conv, nn.ConvTranspose2d):
+        kh, kw, cin_g, cout = w.shape
+        groups = conv.groups
+        wg = w.reshape(kh, kw, cin_g, groups, cout // groups).transpose(3, 2, 4, 0, 1)  # (g, I/g, O/g, kh, kw)
+        w = wg.reshape(groups * cin_g, cout // groups, kh, kw)[:, :, ::-1, ::-1]
+    else:
+        w = w.transpose(3, 2, 0, 1)
+    sd = {"weight": torch.from_numpy(np.array(w, order="C"))}
+    if "b" in p:
+        sd["bias"] = _vec(p["b"])
+    if "sn_u" in p:
+        sd["sn_u"] = _vec(p["sn_u"])
+    return sd
+
+
+_NORM_KEYS = {"scale": "weight", "bias": "bias", "running_mean": "running_mean", "running_var": "running_var"}
+
+
+def zoo_norm_state(p: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX norm's params (instance/layer affine ``scale``/``bias``, Bias2d's
+    ``bias``, batch norm's running statistics too) -> the port norm's."""
+    return {_NORM_KEYS[k]: _vec(v) for k, v in p.items()}
+
+
+def zoo_state_dict(module: nn.Module, params) -> Dict[str, torch.Tensor]:
+    """JAX params of a block-zoo network (``ops.blocks`` builders,
+    ``ops.separable``, ``models.resize_conv``, a norm), numpy arrays -> the
+    state dict of the port ``module`` built with the same config."""
+    from tha4_tpu_torch.ops import nn as tnn
+    from tha4_tpu_torch.ops import norms_extra
+
+    norms = (tnn.InstanceNorm2d, norms_extra.LayerNorm2d, norms_extra.Bias2d, norms_extra.BatchNorm2d)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def visit(node, path: str) -> None:
+        target = module.get_submodule(path[:-1])
+        if isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                visit(v, f"{path}{i}.")
+        elif "w" in node:
+            sd.update({path + k: v for k, v in zoo_conv_state(node, target).items()})
+        elif isinstance(target, norms):
+            sd.update({path + k: v for k, v in zoo_norm_state(node).items()})
+        else:
+            for k, v in node.items():
+                if isinstance(v, (dict, list, tuple)):
+                    visit(v, f"{path}{k}.")
+                else:
+                    sd[path + k] = _vec(v)  # a bare leaf: the resnet block's learned scale
+
+    visit(params, "")
+    return sd

@@ -47,10 +47,16 @@ def load_image_hwc(
     offset: float = -1.0,
     premultiply_alpha: bool = True,
     srgb_to_linear_conversion: bool = True,
+    native: bool = True,
 ) -> np.ndarray:
     """PNG file (or PIL image) -> HWC float32 array in model units:
     uint8 -> [0,1], sRGB -> linear on RGB, premultiply by alpha, then
-    ``image * scale + offset``."""
+    ``image * scale + offset``.
+
+    An RGBA image converted to linear light takes the native codec's single
+    pass (``native/codec.cpp``: LUT sRGB, premultiply, scale; exact for u8
+    inputs), where the JAX package does; it raises if the codec does not
+    build.  ``native=False`` takes the numpy path."""
     import PIL.Image
 
     pil_image = path_or_pil if hasattr(path_or_pil, "mode") else PIL.Image.open(path_or_pil)
@@ -58,6 +64,10 @@ def load_image_hwc(
     target_mode = "RGBA" if has_alpha else "RGB"
     if pil_image.mode != target_mode:
         pil_image = pil_image.convert(target_mode)
+    if native and has_alpha and srgb_to_linear_conversion:
+        from tha4_tpu_torch.native import loader
+
+        return loader.decode_rgba(np.asarray(pil_image, dtype=np.uint8), scale, offset, premultiply_alpha)
     image = np.asarray(pil_image, dtype=np.float32) / 255.0
     if srgb_to_linear_conversion:
         image[:, :, 0:3] = srgb_to_linear(image[:, :, 0:3])

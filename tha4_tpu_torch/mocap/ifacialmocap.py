@@ -1,5 +1,5 @@
 """iFacialMocap wire protocol: UDP capture + v1/v2 text parsers (counterpart of
-``tha4_tpu/mocap/ifacialmocap.py``, without its native drain thread).
+``tha4_tpu/mocap/ifacialmocap.py``).
 
 Reference: src/tha4/mocap/ifacialmocap_v2.py and the puppeteer's socket
 handling (src/tha4/app/character_model_ifacialmocap_puppeteer.py:109-121):
@@ -8,6 +8,7 @@ a nonblocking UDP socket on port 49983, draining to the latest packet.
 
 from __future__ import annotations
 
+import ctypes
 import errno
 import math
 import socket
@@ -30,6 +31,7 @@ from tha4_tpu_torch.mocap.ifacialmocap_constants import (
 )
 
 IFACIALMOCAP_PORT = 49983
+_MAX_PACKET = 8192  # bytes; the native receiver's kMaxPacket
 IFACIALMOCAP_START_STRING = (
     "iFacialMocap_sahuasouryya9218sauhuiayeta91555dy3719|sendDataVersion=v2".encode("utf-8")
 )
@@ -129,19 +131,48 @@ def parse_ifacialmocap_pose(text: str) -> Dict[str, object]:
 
 class IFacialMocapReceiver:
     """UDP receiver draining to the freshest packet per frame
-    (reference character_model_ifacialmocap_puppeteer.py:93-121): the
-    reference's nonblocking-socket drain on the render thread.  The JAX
-    package's receiver can also drain on a native thread
-    (``tha4_tpu/native/mocap_receiver.cpp``); the port has no such thread
-    yet, so each frame parses whatever sat in the kernel buffer since the
-    previous frame."""
+    (reference character_model_ifacialmocap_puppeteer.py:93-121).
 
-    def __init__(self, port: int = IFACIALMOCAP_PORT, capture_address: Optional[str] = None):
+    By default packets are drained continuously OFF the render thread, by
+    the native receiver (``native/mocap_receiver.cpp``, a GIL-free thread
+    and a seqlocked latest-packet slot), so each frame parses the packet
+    closest to its own render time instead of whatever sat in the kernel
+    buffer since the previous frame.  ``use_native=False`` takes the
+    reference's nonblocking-socket drain on the calling thread instead.
+    Nothing falls back: a native library that fails to build raises.
+    PARSING always happens here, so the protocol grammar lives in one
+    place."""
+
+    def __init__(
+        self,
+        port: int = IFACIALMOCAP_PORT,
+        capture_address: Optional[str] = None,
+        use_native: bool = True,
+    ):
         self.port = port
         self.capture_address = capture_address
         self.socket: Optional[socket.socket] = None
+        self.use_native = use_native
+        self._native = None
+        self._native_handle = None
+        self._native_seq = 0
+        self._native_buf = None
 
     def start(self) -> None:
+        if self.use_native:
+            from tha4_tpu_torch.native.loader import get_mocap_library
+
+            lib = get_mocap_library()
+            addr = self.capture_address.encode() if self.capture_address else None
+            handle = lib.tha4_mocap_rx_start(
+                self.port, addr, IFACIALMOCAP_START_STRING, len(IFACIALMOCAP_START_STRING)
+            )
+            if not handle:
+                raise OSError(f"native mocap receiver: could not bind UDP port {self.port}")
+            self._native = lib
+            self._native_handle = handle
+            self._native_buf = ctypes.create_string_buffer(_MAX_PACKET)
+            return
         self.socket = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
         self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self.socket.bind(("", self.port))
@@ -150,14 +181,26 @@ class IFacialMocapReceiver:
             # Ask the iOS app to start streaming to us.
             self.socket.sendto(IFACIALMOCAP_START_STRING, (self.capture_address, self.port))
 
+    @property
+    def draining_natively(self) -> bool:
+        """True once ``start`` has the native drain thread running."""
+        return self._native_handle is not None
+
     def read_pose(self) -> Optional[Dict[str, object]]:
         """Parse the freshest packet, or None if none arrived since last call."""
+        if self._native_handle is not None:
+            seq = ctypes.c_ulonglong(0)
+            n = self._native.tha4_mocap_rx_read(self._native_handle, self._native_buf, _MAX_PACKET, ctypes.byref(seq))
+            if n <= 0 or seq.value == self._native_seq:
+                return None
+            self._native_seq = seq.value
+            return self._complete(parse_ifacialmocap_pose(self._native_buf.raw[:n].decode("utf-8", errors="replace")))
         if self.socket is None:
             return None
         data = None
         while True:
             try:
-                data = self.socket.recv(8192)
+                data = self.socket.recv(_MAX_PACKET)
             except OSError as e:
                 if e.errno in (errno.EAGAIN, errno.EWOULDBLOCK):
                     break
@@ -179,6 +222,10 @@ class IFacialMocapReceiver:
         return pose
 
     def close(self) -> None:
+        if self._native_handle is not None:
+            self._native.tha4_mocap_rx_stop(self._native_handle)
+            self._native_handle = None
+            self._native = None
         if self.socket is not None:
             self.socket.close()
             self.socket = None

@@ -145,13 +145,24 @@ class InstanceNorm2d(nn.Module):
         return instance_norm(x, self.weight, self.bias)
 
 
+_NONLINEARITIES = {
+    "relu": nn.ReLU,
+    "leaky_relu_02": lambda: nn.LeakyReLU(0.2),
+    "silu": nn.SiLU,
+    "tanh": nn.Tanh,
+    "sigmoid": nn.Sigmoid,
+    "elu": nn.ELU,
+    "relu6": nn.ReLU6,
+    "hardswish": nn.Hardswish,
+}
+
+
 def nonlinearity(name: str) -> nn.Module:
-    """The activations the shipped teachers use (``tha4_tpu/ops/nn.py:270``)."""
-    if name == "relu":
-        return nn.ReLU()
-    if name == "leaky_relu_02":
-        return nn.LeakyReLU(0.2)
-    raise ValueError(f"Unknown nonlinearity {name}")
+    """The activations of ``tha4_tpu/ops/nn.py:nonlinearity`` by name (the
+    shipped teachers use the first two)."""
+    if name not in _NONLINEARITIES:
+        raise ValueError(f"Unknown nonlinearity {name}")
+    return _NONLINEARITIES[name]()
 
 
 # ---------------------------------------------------------------------------
@@ -162,26 +173,43 @@ def nonlinearity(name: str) -> nn.Module:
 
 @torch.no_grad()
 def init_conv_(conv: nn.Module, method: str, gen: torch.Generator) -> None:
-    """'he': N(0, 2 / fan_in) with torch's fan_in (in x kh x kw for a conv,
-    out x kh x kw for a transposed conv); 'none': torch's default,
-    U(+-1/sqrt(fan_in)); 'zero'.  A bias is U(+-1/sqrt(fan_in)), or zero
-    under 'zero' (the JAX package zeroes every zero-init conv's bias)."""
-    kh, kw = conv.kernel_size
-    fan_in = (conv.out_channels if isinstance(conv, nn.ConvTranspose2d) else conv.in_channels) * kh * kw
-    bound = 1.0 / math.sqrt(fan_in)
-    if method == "he":
-        conv.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
-    elif method == "none":
-        conv.weight.uniform_(-bound, bound, generator=gen)
-    elif method == "zero":
-        conv.weight.zero_()
-    else:
-        raise ValueError(f"Invalid initialization method {method}")
+    """'he': N(0, 2 / fan_in) with torch's fan_in (weight.shape[1] x kh x kw:
+    in / groups for a conv, out / groups for a transposed conv); 'none':
+    torch's default, U(+-1/sqrt(fan_in)); 'xavier': N(0, 2 / (fan_in +
+    fan_out)); 'dcgan' / 'dcgan_001': N(0, 0.02 / 0.01); 'zero'.  A bias is
+    U(+-1/sqrt(fan_in)), or zero under 'zero' (the JAX package zeroes every
+    zero-init conv's bias)."""
+    init_weight_(conv.weight, method, gen)
     if conv.bias is not None:
         if method == "zero":
             conv.bias.zero_()
         else:
+            bound = 1.0 / math.sqrt(conv.weight[0].numel())
             conv.bias.uniform_(-bound, bound, generator=gen)
+
+
+@torch.no_grad()
+def init_weight_(weight: torch.Tensor, method: str, gen: torch.Generator) -> None:
+    """A conv weight (OIHW, or a transposed conv's (I, O / groups, kh, kw))
+    from the distributions of ``tha4_tpu/ops/nn.py:init_conv_weight``, with
+    torch's fans: fan_in = weight[0].numel(), fan_out = shape[0] x kh x kw."""
+    fan_in = weight[0].numel()
+    fan_out = weight.shape[0] * weight[0, 0].numel()
+    bound = 1.0 / math.sqrt(fan_in)
+    if method == "he":
+        weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
+    elif method == "none":
+        weight.uniform_(-bound, bound, generator=gen)
+    elif method == "xavier":
+        weight.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)), generator=gen)
+    elif method == "dcgan":
+        weight.normal_(0.0, 0.02, generator=gen)
+    elif method == "dcgan_001":
+        weight.normal_(0.0, 0.01, generator=gen)
+    elif method == "zero":
+        weight.zero_()
+    else:
+        raise ValueError(f"Invalid initialization method {method}")
 
 
 @torch.no_grad()
