@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training, distillation to a character model, the verification slice (the int8 teacher, tha4-torch-verify, tha4-torch-eval), data-parallel distillation, and the block zoo, native codec and native mocap receiver on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's student frame, teacher poser, both students' training, distillation to a character model, the verification slice (the int8 teacher, tha4-torch-verify, tha4-torch-eval), data-parallel distillation, the block zoo, native codec and native mocap receiver, and the A/B and run-report tools on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -178,7 +178,26 @@ Phases, one or more lines each:
     loopback sender at 240 packets/s, read between bf16 student frames for
     300 frames: each packet's age when read (p50, p99) and the share of
     reads that got the newest packet sent; then ``tha4-torch-puppeteer
-    --source udp`` fed by that sender, exit 0 on the native drain thread.
+    --source udp`` fed by that sender, exit 0 on the native drain thread;
+18. the tools slice (``python3 chip_smoke.py --phase tools`` runs it alone
+    after phases 1-2), at full width, batch 8, cuDNN deterministic: one
+    bf16 selective-f32 body step with ``teacher_dtype`` omitted, set to
+    bf16, and as the recipe made it before ``teacher_dtype``, bit-equal;
+    (a) ``python -m tha4_tpu_torch.tools.dtype_ab``, one call an arm (bf16,
+    f32, bf16t+f32s, mixed), 32 steps and 64 eval poses each, merged into
+    one JSON: the same pose stream (its sha256) in every arm, finite losses
+    and evals, each arm's exact launches (K2, K3's pair, K5's pair, K6 and
+    its fold; K1, K4 and Q1 never); (b) ``tools.quant_ab``, bf16 then int8,
+    16 steps each, merged: Q1 a whole number of launches a step in the int8
+    arm and none in the bf16 arm, K6 only in the f32 evaluation there, the
+    delta int8 - bf16; (c) a body-only ``pipeline.run_config``
+    with ``--random-teacher``'s teacher, 16 steps and two checkpoints, its
+    launches exact; ``tools.run_report`` on its prefix (the examples and
+    segments of its log) and ``tools.eval_body_checkpoint --export``
+    (checkpoint 2, equal to ``tools.body_eval`` on the trainer's own module
+    to f32 rounding, the exported ``.pt`` loaded into ``SirenMorpher`` equal
+    to the checkpoint); each arm's evaluation and ms a step, and the
+    phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel (K1,
 K2, K3's forward and grid backward, K4-K6, the fold, Q1, and K7 and the TPU
@@ -3445,6 +3464,279 @@ def main_ddp_alone(torch, card: str) -> int:
     return 0
 
 
+# Phase 18, the tools slice: dtype_ab's arms, quant_ab's, and a body run's
+# report and checkpoint evaluation, through the tools' own entry points.
+# Steps a dtype_ab and a quant_ab arm, at TRAIN_BATCH: at 64 and 32 the
+# whole script took 882.5 s on an NVIDIA H100 80GB HBM3 at 700 W (phase
+# 18: 150.3 s), over half its 1200 s limit, so they were cut to these.
+TOOLS_AB_STEPS = 32
+TOOLS_QUANT_STEPS = 16
+TOOLS_EVAL_POSES = 64  # the held-out suite: 8 batches
+TOOLS_RUN_STEPS = 16  # the body run of (c): two checkpoints of 8 steps
+# The checkpoint's evaluation against body_eval on the trainer's own module:
+# the same f32 weights, the teacher in cuDNN's deterministic mode.
+TOOLS_EVAL_RTOL = 1e-6
+
+
+def _tool_counters():
+    from tha4_tpu_torch.ops import cuda_conv, cuda_int8_conv, cuda_poly_sin, cuda_siren, cuda_warp
+
+    return [cuda_warp.grid_sample_fast, cuda_warp.grid_sample_train_forward, cuda_warp.grid_sample_grid_backward,
+            cuda_poly_sin.poly_sin_forward, cuda_poly_sin.poly_sin_backward, cuda_conv.fused_affine_conv3_nchw,
+            cuda_conv.fold_groupnorm_film, cuda_siren.sine_chain_t, cuda_siren.sine_chain_t_bwd, cuda_int8_conv.int8_conv]
+
+
+def _counted(torch, fn, *args):
+    """fn(*args) with every launch counter set to 0 just before it; returns
+    (its result, {counter: launches}, seconds)."""
+    counters = _tool_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in counters}, time.perf_counter() - t0
+
+
+def _step_launches(steps: int, evals: int, teacher_calls: int = None) -> dict:
+    """The launches of ``steps`` body steps (one teacher call each, or
+    ``teacher_calls``) and ``evals`` evaluation batches (an f32 teacher call
+    and a student forward under no_grad: K2, not K3)."""
+    calls = steps if teacher_calls is None else teacher_calls
+    return {"grid_sample_fast": 5 * calls + 6 * evals, "grid_sample_train_forward": steps, "grid_sample_grid_backward": steps,
+            "poly_sin_forward": 9 * (steps + evals), "poly_sin_backward": 9 * steps,
+            "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * (calls + evals),
+            "fold_groupnorm_film": K6_PER_TEACHER_CALL * (calls + evals), "sine_chain_t": 0, "sine_chain_t_bwd": 0,
+            "int8_conv": 0}
+
+
+def _parent_body_step(torch, recipes, mode_07, teacher, image, poses, dtype, mixed, student, optimizer, weights):
+    """The body step as the recipe made it before ``teacher_dtype``."""
+    with torch.no_grad():
+        t = mode_07.compute_outputs(teacher, image.to(dtype).expand(len(poses), -1, -1, -1), poses.to(dtype))
+    targets = tuple(t[i] for i in (0, 2, 3, mode_07.INDEX_FACE_MORPHED_FULL))
+    optimizer.zero_grad(set_to_none=True)
+    return recipes.adam_step(optimizer, *recipes.body_loss(student, targets, poses, weights, dtype, mixed), 1e-4)
+
+
+def _tools_teacher_dtype_check(torch, teacher_params, image) -> dict:
+    """One bf16 selective-f32 body step at B = 8, full width, three ways:
+    ``teacher_dtype`` omitted (None), ``teacher_dtype=bf16``, and the step
+    as the recipe made it before; cuDNN deterministic.  Losses and
+    parameters must be equal bit for bit."""
+    from tha4_tpu_torch.distiller import pose_dataset, recipes
+    from tha4_tpu_torch.models import siren
+    from tha4_tpu_torch.poser.modes import mode_07
+    from tha4_tpu_torch.tools import dtype_ab
+
+    teacher = mode_07.Teacher.from_params(teacher_params).freeze(torch.bfloat16, "cuda")
+    poses = pose_dataset.sample_poses(torch.Generator().manual_seed(SEED + 18), TRAIN_BATCH).cuda()
+    student0 = dtype_ab.student_init(siren.SirenMorpherConfig())
+    runs = []
+    for how in ("omitted", "bf16", "parent"):
+        student = siren.SirenMorpher()
+        student.load_state_dict(student0)
+        student.cuda()
+        optimizer = recipes.make_adam(student)
+        if how == "parent":
+            named = _parent_body_step(torch, recipes, mode_07, teacher, image, poses, torch.bfloat16, True, student, optimizer,
+                                      dtype_ab.LOSS_WEIGHTS)
+        else:
+            kw = {} if how == "omitted" else {"teacher_dtype": torch.bfloat16}
+            step = recipes.make_body_distill_step(teacher, image, torch.bfloat16, True, **kw)
+            named = step(student, optimizer, poses, 1e-4, dtype_ab.LOSS_WEIGHTS)
+        runs.append(({k: v.clone() for k, v in named.items()}, {k: v.clone() for k, v in student.state_dict().items()}))
+    (named0, state0), *rest = runs
+    equal = all(all(torch.equal(named0[k], n[k]) for k in named0) and all(torch.equal(state0[k], s[k]) for k in state0)
+                for n, s in rest)
+    print(f"phase 18 (a): teacher_dtype None, = bf16 and the recipe's step before it, one bf16 mixed step at B={TRAIN_BATCH}: "
+          f"{'bit-equal' if equal else 'NOT bit-equal'} (loss {float(named0['loss']):.6f})")
+    if not equal:
+        raise AssertionError("phase 18 (a): teacher_dtype=None does not reproduce the recipe's step bit for bit")
+    del teacher
+    return {"teacher_dtype_none_bit_equal": equal}
+
+
+def _tools_dtype_ab(torch, workdir: str) -> dict:
+    """(a) ``python -m tha4_tpu_torch.tools.dtype_ab``, one call an arm,
+    merged into one JSON."""
+    from tha4_tpu_torch.tools import dtype_ab
+
+    path = os.path.join(workdir, "dtype_ab.json")
+    argv = ["--examples", str(TOOLS_AB_STEPS * TRAIN_BATCH), "--batch", str(TRAIN_BATCH), "--eval-poses", str(TOOLS_EVAL_POSES),
+            "--json", path]
+    launches, seconds = {}, {}
+    for arm in dtype_ab.ARMS:
+        record, launches[arm], seconds[arm] = _counted(torch, dtype_ab.main, argv + ["--arms", arm])
+        expected = _step_launches(TOOLS_AB_STEPS, TOOLS_EVAL_POSES // TRAIN_BATCH)
+        print(f"phase 18 (a): dtype_ab arm {arm}: {TOOLS_AB_STEPS} steps + {TOOLS_EVAL_POSES} eval poses in {seconds[arm]:.1f} s; "
+              f"launches {launches[arm]}")
+        if launches[arm] != expected:
+            raise AssertionError(f"phase 18 (a): arm {arm} launched {launches[arm]}, expected {expected}")
+    results = record["results"]
+    digests = {arm: results[arm]["poses_sha256"] for arm in dtype_ab.ARMS}
+    finite = all(math.isfinite(results[arm][k]) for arm in dtype_ab.ARMS for k in ("train_loss", "blended_l1", "warped_l1",
+                                                                                     "grid_l1", "psnr_vs_f32"))
+    print(f"phase 18 (a): pose stream sha256 {sorted(set(digests.values()))} over the four arms; losses finite: {finite}")
+    if len(set(digests.values())) != 1 or set(results) != set(dtype_ab.ARMS) or not finite:
+        raise AssertionError(f"phase 18 (a): the arms saw other poses, or a number is not finite: {results}")
+    return {"results": results, "delta": record["delta"], "launches": launches, "seconds": seconds, "card": record["card"]}
+
+
+def _tools_quant_ab(torch, workdir: str) -> dict:
+    """(b) ``python -m tha4_tpu_torch.tools.quant_ab``, bf16 then int8 merged."""
+    from tha4_tpu_torch.tools import quant_ab
+
+    path = os.path.join(workdir, "quant_ab.json")
+    argv = ["--steps", str(TOOLS_QUANT_STEPS), "--batch", str(TRAIN_BATCH), "--eval-batches", str(TOOLS_EVAL_POSES // TRAIN_BATCH),
+            "--json", path]
+    launches, seconds = {}, {}
+    evals = TOOLS_EVAL_POSES // TRAIN_BATCH
+    for arm in quant_ab.ARMS:
+        record, launches[arm], seconds[arm] = _counted(torch, quant_ab.main, argv + ["--arms", arm])
+        print(f"phase 18 (b): quant_ab arm {arm}: {TOOLS_QUANT_STEPS} steps + {evals} eval batches in {seconds[arm]:.1f} s; "
+              f"launches {launches[arm]}")
+    q1 = launches["int8"]["int8_conv"]
+    per_call = q1 // TOOLS_QUANT_STEPS
+    expected = {"bf16": _step_launches(TOOLS_QUANT_STEPS, evals),
+                # the calibration's bf16 call and every int8 call leave K6 for the unfused order
+                "int8": {**_step_launches(TOOLS_QUANT_STEPS, evals, teacher_calls=TOOLS_QUANT_STEPS + 1),
+                         "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * evals,
+                         "fold_groupnorm_film": K6_PER_TEACHER_CALL * evals, "int8_conv": q1}}
+    if launches != expected or per_call == 0 or q1 != per_call * TOOLS_QUANT_STEPS:
+        raise AssertionError(f"phase 18 (b): launches {launches}, expected {expected} with Q1 a whole number of convs a step")
+    results = record["results"]
+    if set(results) != set(quant_ab.ARMS) or not record["delta"] or \
+            results["bf16"]["poses_sha256"] != results["int8"]["poses_sha256"]:
+        raise AssertionError(f"phase 18 (b): the merged record is incomplete or the arms saw other poses: {record}")
+    print(f"phase 18 (b): Q1 {per_call} launches a step in the int8 arm, 0 in the bf16 arm; delta int8-bf16 "
+          + ", ".join(f"{k} {v:+.5f}" for k, v in record["delta"].items()))
+    return {"results": results, "delta": record["delta"], "launches": launches, "seconds": seconds, "q1_per_step": per_call}
+
+
+def _tools_run(torch, workdir: str) -> dict:
+    """(c) A body-only ``run_config`` with ``--random-teacher`` semantics,
+    cut to two checkpoints; then ``run_report`` and
+    ``eval_body_checkpoint --export`` on its prefix."""
+    import contextlib
+    import io
+
+    from tha4_tpu_torch.charmodel.synthetic import write_distiller_inputs
+    from tha4_tpu_torch.convert.torch_weights import load_torch_state_dict
+    from tha4_tpu_torch.core import imagecodec
+    from tha4_tpu_torch.distiller import pipeline
+    from tha4_tpu_torch.distiller.config import DistillerConfig
+    from tha4_tpu_torch.models import siren
+    from tha4_tpu_torch.poser.modes import mode_07
+    from tha4_tpu_torch.tools import body_eval, eval_body_checkpoint, run_report
+    from tha4_tpu_torch.training import checkpoint as ckpt
+    from tha4_tpu_torch.training.trainer import Trainer
+    from tha4_tpu_torch.utils import fidelity
+
+    config = DistillerConfig.load(write_distiller_inputs(os.path.join(workdir, "tools_run"), seed=SEED + 18,
+                                                         batch_size=TRAIN_BATCH))
+    total = TOOLS_RUN_STEPS * TRAIN_BATCH
+    kwargs = dict(teacher_params_07=mode_07.init(torch.Generator().manual_seed(0), mode_07.TeacherConfig()),
+                  compute_dtype=torch.bfloat16, device="cuda", face_total_examples=total, body_total_examples=total,
+                  examples_per_checkpoint=total // 2,
+                  examples_per_snapshot=total // 2, student_mixed=True)
+    trained = []
+    train = Trainer.train
+
+    def logged_train(self, target_examples=None):  # a log row every step, so that the report has rows to read
+        self.cfg.log_every_seconds = 0.0
+        out = train(self, target_examples)
+        trained.append(out)
+        return out
+
+    Trainer.train = logged_train
+    try:
+        _, launches, run_s = _counted(torch, lambda: pipeline.run_config(config, target="body", **kwargs))
+    finally:
+        Trainer.train = train
+    expected = _step_launches(TOOLS_RUN_STEPS, 0)
+    print(f"phase 18 (c): body-only run_config (--random-teacher), {TOOLS_RUN_STEPS} steps, checkpoints every "
+          f"{total // 2} examples, in {run_s:.1f} s; launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"phase 18 (c): the run launched {launches}, expected {expected}")
+    body_prefix = config.body_morpher_prefix()
+    with open(os.path.join(body_prefix, "log", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        report = run_report.main([config.prefix, "--json", "--batch", str(TRAIN_BATCH)])
+        phases = run_report.main([config.prefix, "--json", "--phases", "--batch", str(TRAIN_BATCH)])
+    body = [r for r in report if r["student"] == "body"]
+    print(f"phase 18 (c): run_report: {report}; --phases: {phases}")
+    # Each checkpoint task is one Trainer.train call, whose elapsed starts
+    # anew: a segment each, covering its examples after its first step's row.
+    if (len(body) != 1 or not body[0]["examples_seen"] == rows[-1]["examples_seen"] == total
+            or body[0]["segments"] != len(trained) != 2 or len(rows) != TOOLS_RUN_STEPS
+            or body[0]["examples_covered"] != total - len(trained) * TRAIN_BATCH or len(phases) != 1):
+        raise AssertionError(f"phase 18 (c): the report does not match the log ({len(rows)} rows, last at "
+                             f"{rows[-1]['examples_seen']} examples, {len(trained)} train calls)")
+
+    export = os.path.join(workdir, "tools_export")
+    result, eval_launches, eval_s = _counted(torch, eval_body_checkpoint.main, [
+        config.prefix, "--export", export, "--eval-poses", str(TOOLS_EVAL_POSES), "--batch", str(TRAIN_BATCH)])
+    npz = ckpt._load_npz(os.path.join(ckpt.checkpoint_dir(body_prefix, 2), "module_module.npz"))
+    exported = siren.SirenMorpher()
+    exported.load_state_dict(load_torch_state_dict(os.path.join(export, "body_morpher.pt")))
+    same_weights = all(np.array_equal(v.numpy(), npz[k]) for k, v in exported.state_dict().items())
+    teacher = mode_07.Teacher.from_params(kwargs["teacher_params_07"]).freeze(torch.float32, "cuda")
+    image = torch.from_numpy(imagecodec.load_image_hwc(config.character_image_file_name))[None].cuda()
+    direct = body_eval.evaluate_body_student(teacher, trained[-1]["module"], image,
+                                             fidelity.random_pose_suite(TOOLS_EVAL_POSES, seed=body_eval.EVAL_SEED), TRAIN_BATCH)
+    errs = {k: abs(result[k] - direct[k]) / abs(direct[k]) for k in body_eval.METRICS}
+    print(f"phase 18 (c): eval_body_checkpoint (checkpoint {result['checkpoint']}, {result['examples']} examples) in "
+          f"{eval_s:.1f} s: " + ", ".join(f"{k} {result[k]:.6f}" for k in body_eval.METRICS)
+          + f"; against body_eval on the trainer's module, relative {max(errs.values()):.2e} (bar {TOOLS_EVAL_RTOL:.0e}); "
+          f"the export loads into SirenMorpher and equals checkpoint 2: {same_weights}; launches {eval_launches}")
+    if (result["checkpoint"], result["examples"]) != (2, total) or not same_weights or max(errs.values()) > TOOLS_EVAL_RTOL:
+        raise AssertionError(f"phase 18 (c): checkpoint evaluation {result} against {direct}, export equal {same_weights}")
+    if eval_launches != {**_step_launches(0, TOOLS_EVAL_POSES // TRAIN_BATCH)}:
+        raise AssertionError(f"phase 18 (c): the evaluation launched {eval_launches}")
+    return {"report": report, "phases": phases, "eval": result, "run_s": run_s, "eval_s": eval_s, "launches": launches}
+
+
+def phase_tools(torch, teacher_params) -> dict:
+    """Phase 18: the tools slice on the card, cuDNN deterministic."""
+    from tha4_tpu_torch.tools import body_eval
+
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as workdir:
+            check = _tools_teacher_dtype_check(torch, teacher_params, body_eval.character_image(None, "cuda"))
+            torch.cuda.empty_cache()
+            ab = _tools_dtype_ab(torch, workdir)
+            torch.cuda.empty_cache()
+            qab = _tools_quant_ab(torch, workdir)
+            torch.cuda.empty_cache()
+            run = _tools_run(torch, workdir)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    seconds = time.perf_counter() - t0
+    for arm, r in ab["results"].items():
+        print(f"phase 18 (a): {arm}: {r['ms_per_step']:.2f} ms/step, train loss {r['train_loss']:.5f}, eval "
+              + ", ".join(f"{k} {r[k]:.5f}" for k in body_eval.METRICS))
+    print(f"phase 18 (the tools slice): {seconds:.1f} s")
+    return {**check, "dtype_ab": ab, "quant_ab": qab, "run": run, "seconds": seconds}
+
+
+def main_tools_alone(torch) -> int:
+    """``--phase tools``: phase 18 alone, after the device and the build."""
+    from tha4_tpu_torch.charmodel.synthetic import random_teacher_07
+
+    tools = phase_tools(torch, random_teacher_07(torch.Generator().manual_seed(SEED + 8)))
+    print(json.dumps(tools))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3463,8 +3755,11 @@ def main() -> int:
         return main_ddp_alone(torch, card)
     if sys.argv[1:] == ["--phase", "rest"]:
         return main_rest_alone(torch)
+    if sys.argv[1:] == ["--phase", "tools"]:
+        return main_tools_alone(torch)
     if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --phase int8, --phase ddp or --phase rest")
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --phase int8, --phase ddp, --phase rest or "
+                         "--phase tools")
 
     from tha4_tpu_torch.models import siren
 
@@ -3496,6 +3791,8 @@ def main() -> int:
         ddp = phase_ddp(torch, workdir, teacher_params, card)
     torch.cuda.empty_cache()
     rest = phase_rest(torch)
+    torch.cuda.empty_cache()
+    tools = phase_tools(torch, teacher_params)
 
     k5_mixed = k5["f32->bf16"]
     k6_main = k6["shapes"][K6_MAIN_SHAPE]
@@ -3714,6 +4011,10 @@ def main() -> int:
         | {"verify_s": int8["verify"]["s"], "verify_int8": int8["verify"]["checks"]["int8 teacher fidelity"]},
         "ddp": {k: ddp[k] for k in ("compared", "peak_gb", "teacher_ms_a_pose", "ranks_s", "nccl_s", "seconds")},
         "rest": rest,
+        "tools": {"dtype_ab": tools["dtype_ab"]["results"], "dtype_ab_launches": tools["dtype_ab"]["launches"],
+                  "quant_ab": tools["quant_ab"]["results"], "quant_ab_delta": tools["quant_ab"]["delta"],
+                  "quant_ab_launches": tools["quant_ab"]["launches"], "q1_per_step": tools["quant_ab"]["q1_per_step"],
+                  "run_report": tools["run"]["report"], "checkpoint_eval": tools["run"]["eval"], "seconds": tools["seconds"]},
     }
     for entry in kernels["kernels"]:
         if set(KERNEL_KEYS) - set(entry) or not entry["launches"] > 0:

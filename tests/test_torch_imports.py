@@ -12,7 +12,7 @@ import importlib, pkgutil, sys
 import tha4_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tha4_tpu_torch.__path__, "tha4_tpu_torch.")]
 # The face- and body-distillation, teacher-poser, serving, distill-to-a-character-model, verification,
-# data-parallel and block-zoo/native slices' modules are among them.
+# data-parallel, block-zoo/native and tools slices' modules are among them.
 needed = {"ops.nn", "models.encoder_decoder", "models.eyebrow", "models.face_morpher", "poser.modes.mode_12",
           "training.losses", "training.schedules", "training.checkpoint", "training.trainer",
           "distiller.config", "distiller.pose_dataset", "distiller.recipes", "distiller.pipeline",
@@ -27,7 +27,8 @@ needed = {"ops.nn", "models.encoder_decoder", "models.eyebrow", "models.face_mor
           "ops.quant", "ops.cuda_int8_conv", "apps.evaluate", "apps.verify", "utils.threefry",
           "parallel.mesh", "training.optimizers", "training.ema", "training.two_networks", "training.swarm",
           "native", "native.loader", "core.imagecodec", "tasks.indexed", "core.datasets", "ops.spectral_norm",
-          "ops.norms_extra", "ops.separable", "ops.blocks", "models.resize_conv"}
+          "ops.norms_extra", "ops.separable", "ops.blocks", "models.resize_conv",
+          "tools.body_eval", "tools.dtype_ab", "tools.quant_ab", "tools.run_report", "tools.eval_body_checkpoint"}
 assert {"tha4_tpu_torch." + n for n in needed} <= set(names), sorted(needed - {n[len("tha4_tpu_torch."):] for n in names})
 for name in names:
     importlib.import_module(name)

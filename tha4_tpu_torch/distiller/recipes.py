@@ -16,6 +16,14 @@ by p -= lr * u).  One step: the frozen teacher labels the batch (no
 gradient, the teacher's dtype; int8 convolutions under ``teacher_quant``,
 the scales ``ops.quant`` calibrated), then one exact student update.
 
+The body recipe's ``teacher_dtype`` (None: the student's ``dtype``) sets
+the frozen teacher's activation dtype apart from the student's, as the JAX
+recipe's does: the teacher runs on the image and poses in its dtype, its
+labels stay in it (the loss widens them to f32), and the student's input,
+face_morphed_full, is cast to the student's dtype.  The caller freezes
+the teacher in that dtype (``Teacher.freeze``); a teacher frozen in
+another raises.
+
 Teacher lookahead (the JAX package's ``lookahead``): the teacher is frozen,
 so a group of K consecutive steps can be labelled in one teacher call at
 K times the batch, then K exact student updates follow in order; the
@@ -187,16 +195,27 @@ def make_face_distill_step(teacher: mode_12.FaceTeacher, image: torch.Tensor, ma
 # ---------------------------------------------------------------------------
 
 
+def frozen_dtype(teacher: torch.nn.Module) -> torch.dtype:
+    """The dtype ``Teacher.freeze`` stored the teacher's convolutions in
+    (its first conv's weight; norms and linears stay f32)."""
+    return next(m.weight.dtype for m in teacher.modules() if isinstance(m, torch.nn.Conv2d))
+
+
 @torch.no_grad()
 def body_teacher_targets(teacher: mode_07.Teacher, image: torch.Tensor, poses: torch.Tensor, dtype: torch.dtype,
-                         teacher_quant: Optional[List[dict]] = None) -> Tuple[torch.Tensor, ...]:
+                         teacher_quant: Optional[List[dict]] = None,
+                         teacher_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
     """(posed, warped, grid change, face_morphed_full), each (N, 512, 512, *)
-    in ``dtype``, the teacher's (int8 under ``teacher_quant``): image (1,
-    512, 512, 4), poses (N, 45)."""
+    in the teacher's dtype, ``teacher_dtype`` or else ``dtype`` (int8
+    convolutions under ``teacher_quant``): image (1, 512, 512, 4), poses
+    (N, 45).  Raises where the teacher was frozen in another dtype."""
+    t_dtype = teacher_dtype or dtype
+    if frozen_dtype(teacher) != t_dtype:
+        raise ValueError(f"the teacher was frozen in {frozen_dtype(teacher)}, but its labels are asked for in {t_dtype}")
     n = poses.shape[0]
-    image_b = image.to(dtype).expand(n, *image.shape[1:])
+    image_b = image.to(t_dtype).expand(n, *image.shape[1:])
     with quant.apply_scales(teacher_quant):
-        t = mode_07.compute_outputs(teacher, image_b, poses.to(dtype))
+        t = mode_07.compute_outputs(teacher, image_b, poses.to(t_dtype))
     return tuple(t[i] for i in (0, 2, 3, mode_07.INDEX_FACE_MORPHED_FULL))
 
 
@@ -232,17 +251,17 @@ def body_loss(student: siren.SirenMorpher, targets, poses: torch.Tensor, weights
 
 
 def make_body_distill_group(teacher: mode_07.Teacher, image: torch.Tensor, dtype: torch.dtype, mixed: bool = False,
-                            teacher_quant: Optional[List[dict]] = None):
+                            teacher_quant: Optional[List[dict]] = None, teacher_dtype: Optional[torch.dtype] = None):
     """group(student, optimizer, poses_list, lrs, weights_list) -> the last
     step's named losses: the teacher labels the K batches in one call (int8
-    under ``teacher_quant``), then K student updates, batch j at ``lrs[j]``
-    with the loss weights ``weights_list[j]`` (``{term: weight}`` of
-    ``BODY_LOSS_TERMS``)."""
+    under ``teacher_quant``; in ``teacher_dtype``, None for ``dtype``), then
+    K student updates in ``dtype``, batch j at ``lrs[j]`` with the loss
+    weights ``weights_list[j]`` (``{term: weight}`` of ``BODY_LOSS_TERMS``)."""
 
     def group(student, optimizer, poses_list, lrs, weights_list):
         poses = torch.cat(poses_list) if len(poses_list) > 1 else poses_list[0]
         sizes = [len(p) for p in poses_list]
-        labels = [t.split(sizes) for t in body_teacher_targets(teacher, image, poses, dtype, teacher_quant)]
+        labels = [t.split(sizes) for t in body_teacher_targets(teacher, image, poses, dtype, teacher_quant, teacher_dtype)]
         for j, (batch, lr, weights) in enumerate(zip(poses_list, lrs, weights_list)):
             optimizer.zero_grad(set_to_none=True)
             targets = tuple(t[j] for t in labels)
@@ -253,12 +272,13 @@ def make_body_distill_group(teacher: mode_07.Teacher, image: torch.Tensor, dtype
 
 
 def make_body_distill_step(teacher: mode_07.Teacher, image: torch.Tensor, dtype: torch.dtype, mixed: bool = False,
-                           teacher_quant: Optional[List[dict]] = None):
+                           teacher_quant: Optional[List[dict]] = None, teacher_dtype: Optional[torch.dtype] = None):
     """step(student, optimizer, poses, lr, weights) -> named losses: the
-    teacher's labels for ``poses`` (int8 under ``teacher_quant``), then one
-    student update with the loss weights ``{term: weight}`` of
+    teacher's labels for ``poses`` (int8 under ``teacher_quant``; in
+    ``teacher_dtype``, None for ``dtype``), then one student update in
+    ``dtype`` with the loss weights ``{term: weight}`` of
     ``BODY_LOSS_TERMS``."""
-    group = make_body_distill_group(teacher, image, dtype, mixed, teacher_quant)
+    group = make_body_distill_group(teacher, image, dtype, mixed, teacher_quant, teacher_dtype)
 
     def step(student, optimizer, poses, lr, weights):
         return group(student, optimizer, [poses], [lr], [weights])

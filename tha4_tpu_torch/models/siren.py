@@ -269,13 +269,14 @@ def _first_sine_linear_split(conv: nn.Conv2d, x: Optional[torch.Tensor], pose: t
     folded into the bias, and level 0 (no x) has no x product.  ``mixed``:
     everything up to the sine in f32, the output in the pose's dtype;
     otherwise the bias is rounded to that dtype, the x product is in it, and
-    so is omega * pre, before the sine."""
+    so is omega * pre, before the sine.  Parameters stored in bf16 are
+    widened for the f32 terms, as the JAX package widens them."""
     dtype = pose.dtype
-    w = _rows(conv)
+    w = _rows(conv).float()
     cx = 0 if x is None else x.shape[-1]
     pos_term = warp.identity_grid(size, size, pose.device) @ w[cx : cx + 2]
     pose_term = pose.float() @ w[cx + 2 :]
-    bias_f32 = pos_term[None] + pose_term[:, None, None, :] + conv.bias
+    bias_f32 = pos_term[None] + pose_term[:, None, None, :] + conv.bias.float()
     if mixed:
         pre = bias_f32 if x is None else _matmul_f32(x, w[:cx]) + bias_f32
         return poly_sin(OMEGA * pre, dtype)
