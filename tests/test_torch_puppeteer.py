@@ -17,6 +17,7 @@ within 4 levels where both alphas are at least 128.
 
 import io
 import json
+import re
 import statistics
 import os
 import sys
@@ -280,3 +281,21 @@ def test_udp_source_on_the_native_receiver_and_a_one_frame_benchmark(model_yaml,
     assert puppeteer.main(["--model", model_yaml, "--source", "synthetic", "--frames", "1", "--dtype", "exact",
                            "--benchmark", "--device", "cpu"]) == 0
     assert "frames=1 rendered=1 latency" in capsys.readouterr().out
+
+
+def test_benchmark_latency_runs_from_the_packet_to_the_frames_bytes(model_yaml, capsys, monkeypatch):
+    """The ``--benchmark`` latency starts when the packet is handed to the
+    converter: a converter that takes 40 ms a packet shows in every frame's
+    latency (it used to time only the wait in the final copy)."""
+    convert = IFacialMocapPoseConverter.convert
+
+    def slow(self, *args, **kwargs):
+        time.sleep(0.04)
+        return convert(self, *args, **kwargs)
+
+    monkeypatch.setattr(IFacialMocapPoseConverter, "convert", slow)
+    assert puppeteer.main(["--model", model_yaml, "--source", "synthetic", "--frames", "3", "--dtype", "exact",
+                           "--benchmark", "--device", "cpu"]) == 0
+    fields = re.search(r"frames=3 rendered=3 latency mean=([\d.]+)ms p50=([\d.]+)ms p99=([\d.]+)ms", capsys.readouterr().out)
+    assert fields is not None
+    assert min(float(v) for v in fields.groups()) >= 40.0

@@ -586,7 +586,10 @@ def main(argv=None, mediapipe_landmarker=None) -> int:
     size = poser.get_image_size()
     host = torch.empty((size, size, 4), dtype=torch.uint8, pin_memory=device.type == "cuda")
 
-    def _render(pose, index):
+    def _render(pose, index, t_packet):
+        """Pose, encode and copy one frame; its latency runs from
+        ``t_packet``, when the packet was handed to the converter, to the
+        frame's bytes in the pinned host buffer."""
         nonlocal fetched_count
         # Display encode (straight alpha + linear->sRGB + uint8 pack) on the
         # card, as the reference's GPU postprocess
@@ -594,9 +597,8 @@ def main(argv=None, mediapipe_landmarker=None) -> int:
         # crosses to the host, not 4 MB of floats.
         with torch.inference_mode():
             frame = imagecodec.encode_display_u8(poser.pose(image, np.asarray(pose, np.float32)))[0]
-            t0 = time.perf_counter()
             host.copy_(frame)  # waits for the frame
-        latencies.append(time.perf_counter() - t0)
+        latencies.append(time.perf_counter() - t_packet)
         fetched_count += 1
         if args.output_dir is not None:
             imagecodec.save_image_u8_hwc(host, f"{args.output_dir}/frame_{index:06d}.png")
@@ -638,9 +640,10 @@ def main(argv=None, mediapipe_landmarker=None) -> int:
                     break
 
             frame_count += 1
+            t_packet = time.perf_counter()
             pose = converter.convert(blend)
             if last_pose is None or pose != last_pose:
-                _render(pose, frame_count)
+                _render(pose, frame_count, t_packet)
                 last_pose = pose
             # else: pose-equality short-circuit (reference :311-313) — no
             # new dispatch; the display keeps showing the last frame.

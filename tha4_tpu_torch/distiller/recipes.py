@@ -33,6 +33,12 @@ update stream is K = 1's, only the teacher's batch grows.
 (batch 8 over 2 ranks) K is 2.  The student's forward goes through
 ``parallel.mesh.apply``, so under a ``data_parallel`` replica its backward
 averages the gradients over the ranks.
+
+Each phase of a step is a ``utils.profiling`` span: ``distill.labels`` (the
+teacher's call, with mode_07's per-network spans inside),
+``distill.forward`` (the student's forward and the loss terms),
+``distill.backward`` and ``distill.adam`` (the gradients' zeroing before
+the forward, and the update after the backward).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from tha4_tpu_torch.parallel import mesh
 from tha4_tpu_torch.poser.modes import mode_07, mode_12
 from tha4_tpu_torch.training import losses
 from tha4_tpu_torch.training.schedules import TrainingPhase, TrainingPhases, step_lr_schedule
+from tha4_tpu_torch.utils import profiling
 
 # The student's 128x128 square within the teacher's 192x192 face morph:
 # centre (96, 112) there, (256, 144) in the 512x512 frame.
@@ -121,19 +128,21 @@ def face_teacher_targets(teacher: mode_12.FaceTeacher, image: torch.Tensor, pose
     image (1, 512, 512, 4), poses (N, 45) -> (N, 128, 128, 4).
     ``teacher_quant``: the int8 teacher's calibrated scales (``ops.quant``),
     or None for the teacher in ``dtype``."""
-    n = poses.shape[0]
-    image_b = image.to(dtype).expand(n, *image.shape[1:])
-    with quant.apply_scales(teacher_quant):
-        face = mode_12.compute_outputs(teacher, image_b, poses.to(dtype))[mode_12.INDEX_FACE_MORPHED_IMAGE]
-    return face[:, FACE_CROP_Y0 : FACE_CROP_Y0 + FACE_CROP_SIZE, FACE_CROP_X0 : FACE_CROP_X0 + FACE_CROP_SIZE, :]
+    with profiling.span("distill.labels"):
+        n = poses.shape[0]
+        image_b = image.to(dtype).expand(n, *image.shape[1:])
+        with quant.apply_scales(teacher_quant):
+            face = mode_12.compute_outputs(teacher, image_b, poses.to(dtype))[mode_12.INDEX_FACE_MORPHED_IMAGE]
+        return face[:, FACE_CROP_Y0 : FACE_CROP_Y0 + FACE_CROP_SIZE, FACE_CROP_X0 : FACE_CROP_X0 + FACE_CROP_SIZE, :]
 
 
 def face_loss(student: siren.SirenFaceMorpher, target: torch.Tensor, mask: torch.Tensor, poses: torch.Tensor, dtype: torch.dtype):
     """(total, named) for one batch.  The student's pose is rounded to the
     compute dtype first (as the JAX recipe casts it) and widened to f32 for
     the kernel; target and prediction are widened to f32 for the loss."""
-    pose = poses[:, : mesh.unwrap(student).cfg.pose_size].to(dtype).float()
-    return face_loss_terms(mesh.apply(student, siren.siren_face_morpher_train_apply, pose, dtype), target, mask)
+    with profiling.span("distill.forward"):
+        pose = poses[:, : mesh.unwrap(student).cfg.pose_size].to(dtype).float()
+        return face_loss_terms(mesh.apply(student, siren.siren_face_morpher_train_apply, pose, dtype), target, mask)
 
 
 def face_loss_terms(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor):
@@ -147,16 +156,19 @@ def face_loss_terms(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor
 def adam_step(optimizer: torch.optim.Optimizer, total: torch.Tensor, named, lr: float) -> Dict[str, torch.Tensor]:
     """Backward from ``total``, then one Adam step at ``lr`` (the gradients
     were zeroed before the forward); returns the named losses."""
-    total.backward()
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+    with profiling.span("distill.backward"):
+        total.backward()
+    with profiling.span("distill.adam"):
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
     return {k: v.detach() for k, v in named.items()}
 
 
 def student_update(student, optimizer: torch.optim.Optimizer, target, mask, poses, lr: float, dtype) -> Dict[str, torch.Tensor]:
     """One exact Adam step on the face loss; returns the named losses."""
-    optimizer.zero_grad(set_to_none=True)
+    with profiling.span("distill.adam"):
+        optimizer.zero_grad(set_to_none=True)
     return adam_step(optimizer, *face_loss(student, target, mask, poses, dtype), lr)
 
 
@@ -209,14 +221,15 @@ def body_teacher_targets(teacher: mode_07.Teacher, image: torch.Tensor, poses: t
     in the teacher's dtype, ``teacher_dtype`` or else ``dtype`` (int8
     convolutions under ``teacher_quant``): image (1, 512, 512, 4), poses
     (N, 45).  Raises where the teacher was frozen in another dtype."""
-    t_dtype = teacher_dtype or dtype
-    if frozen_dtype(teacher) != t_dtype:
-        raise ValueError(f"the teacher was frozen in {frozen_dtype(teacher)}, but its labels are asked for in {t_dtype}")
-    n = poses.shape[0]
-    image_b = image.to(t_dtype).expand(n, *image.shape[1:])
-    with quant.apply_scales(teacher_quant):
-        t = mode_07.compute_outputs(teacher, image_b, poses.to(t_dtype))
-    return tuple(t[i] for i in (0, 2, 3, mode_07.INDEX_FACE_MORPHED_FULL))
+    with profiling.span("distill.labels"):
+        t_dtype = teacher_dtype or dtype
+        if frozen_dtype(teacher) != t_dtype:
+            raise ValueError(f"the teacher was frozen in {frozen_dtype(teacher)}, but its labels are asked for in {t_dtype}")
+        n = poses.shape[0]
+        image_b = image.to(t_dtype).expand(n, *image.shape[1:])
+        with quant.apply_scales(teacher_quant):
+            t = mode_07.compute_outputs(teacher, image_b, poses.to(t_dtype))
+        return tuple(t[i] for i in (0, 2, 3, mode_07.INDEX_FACE_MORPHED_FULL))
 
 
 def body_loss_terms(outs: Sequence[torch.Tensor], targets: Sequence[torch.Tensor], weights: Mapping[str, float]):
@@ -246,8 +259,9 @@ def body_loss_terms(outs: Sequence[torch.Tensor], targets: Sequence[torch.Tensor
 def body_loss(student: siren.SirenMorpher, targets, poses: torch.Tensor, weights: Mapping[str, float], dtype: torch.dtype, mixed: bool):
     """(total, named) for one batch: the student's five outputs on the
     teacher's face_morphed_full (in ``dtype``) and the poses."""
-    outs = mesh.apply(student, siren.siren_morpher_train_apply, targets[3].to(dtype), poses, dtype, mixed)
-    return body_loss_terms(outs, targets, weights)
+    with profiling.span("distill.forward"):
+        outs = mesh.apply(student, siren.siren_morpher_train_apply, targets[3].to(dtype), poses, dtype, mixed)
+        return body_loss_terms(outs, targets, weights)
 
 
 def make_body_distill_group(teacher: mode_07.Teacher, image: torch.Tensor, dtype: torch.dtype, mixed: bool = False,
@@ -263,7 +277,8 @@ def make_body_distill_group(teacher: mode_07.Teacher, image: torch.Tensor, dtype
         sizes = [len(p) for p in poses_list]
         labels = [t.split(sizes) for t in body_teacher_targets(teacher, image, poses, dtype, teacher_quant, teacher_dtype)]
         for j, (batch, lr, weights) in enumerate(zip(poses_list, lrs, weights_list)):
-            optimizer.zero_grad(set_to_none=True)
+            with profiling.span("distill.adam"):
+                optimizer.zero_grad(set_to_none=True)
             targets = tuple(t[j] for t in labels)
             named = adam_step(optimizer, *body_loss(student, targets, batch, weights, dtype, mixed), lr)
         return named

@@ -1,5 +1,6 @@
 """iFacialMocap blendshapes -> 45-dim THA4 pose (counterpart of
-``tha4_tpu/mocap/ifacialmocap_pose_converter.py``, pure numpy and stdlib).
+``tha4_tpu/mocap/ifacialmocap_pose_converter.py``): numpy and stdlib, and
+one ``utils.profiling`` span around the viseme solve.
 
 Faithful port of the reference converter math
 (reference: src/tha4/mocap/ifacialmocap_pose_converter_25.py:397-607):
@@ -38,6 +39,7 @@ from tha4_tpu_torch.mocap.ifacialmocap_constants import (
     MOUTH_SHRUG_UPPER, MOUTH_SMILE_LEFT, MOUTH_SMILE_RIGHT,
 )
 from tha4_tpu_torch.poser.modes.pose_parameters import get_pose_parameters
+from tha4_tpu_torch.utils import profiling
 
 
 class EyebrowDownMode(Enum):
@@ -72,16 +74,17 @@ VISEME_MATRIX = np.array(
 def solve_viseme_decomposition(mouth_point, iterations: int = 300, lr: float = 0.02) -> np.ndarray:
     """argmin_{d in [0,1]^4} ||d @ M - p||_2 + 0.01 ||d||_1 via projected
     gradient with fixed iteration count (deterministic scipy replacement)."""
-    p = np.asarray(mouth_point, np.float64)
-    m = VISEME_MATRIX
-    d = np.zeros(4)
-    for _ in range(iterations):
-        r = d @ m - p
-        norm = np.linalg.norm(r)
-        grad_l2 = (r @ m.T) / norm if norm > 1e-12 else np.zeros(4)
-        grad = grad_l2 + 0.01 * np.sign(d)
-        d = np.clip(d - lr * grad, 0.0, 1.0)
-    return d
+    with profiling.span("ifm.viseme_solve"):
+        p = np.asarray(mouth_point, np.float64)
+        m = VISEME_MATRIX
+        d = np.zeros(4)
+        for _ in range(iterations):
+            r = d @ m - p
+            norm = np.linalg.norm(r)
+            grad_l2 = (r @ m.T) / norm if norm > 1e-12 else np.zeros(4)
+            grad = grad_l2 + 0.01 * np.sign(d)
+            d = np.clip(d - lr * grad, 0.0, 1.0)
+        return d
 
 
 class IFacialMocapPoseConverterArgs:

@@ -12,7 +12,9 @@
 Outputs, 33 tensors, NHWC, in the compute dtype: upscaler (5) +
 [face_morphed_full] + body (5) + face (8) + combiner (8) + decomposer (6).
 A call runs K2 five times: the combiner's, the face morpher's, the body
-morpher's and the upscaler's two warps.
+morpher's and the upscaler's two warps.  Each network's call is a
+``utils.profiling`` span (``mode07.decomposer`` ... ``mode07.upscaler``);
+the pastes and resizes between them are not.
 
 Parameters travel as the five reference ``.pt`` state dicts keyed by the
 network names (``init`` draws a seeded random set, ``load_params_from_torch``
@@ -41,6 +43,7 @@ from tha4_tpu_torch.ops import quant
 from tha4_tpu_torch.ops.resize import resize_bilinear
 from tha4_tpu_torch.poser.general_poser import GeneralPoser
 from tha4_tpu_torch.poser.modes.pose_parameters import NUM_EYEBROW_PARAMS, NUM_FACE_PARAMS
+from tha4_tpu_torch.utils import profiling
 
 KEY_EYEBROW_DECOMPOSER = "eyebrow_decomposer"
 KEY_EYEBROW_MORPHING_COMBINER = "eyebrow_morphing_combiner"
@@ -147,7 +150,8 @@ def load_params_from_torch(module_file_names: Optional[Dict[str, str]] = None, k
 def compute_decomposer_outputs(teacher: nn.Module, image: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The rest-image-only stage, cacheable across frames: the eyebrow
     decomposer's 6 outputs."""
-    return tuple(teacher.eyebrow_decomposer(image[:, 64:192, 192:320, :]))
+    with profiling.span("mode07.decomposer"):
+        return tuple(teacher.eyebrow_decomposer(image[:, 64:192, 192:320, :]))
 
 
 def compute_face_outputs(teacher: nn.Module, image: torch.Tensor, pose: torch.Tensor,
@@ -157,15 +161,17 @@ def compute_face_outputs(teacher: nn.Module, image: torch.Tensor, pose: torch.Te
     for the decomposer."""
     if decomposer_outputs is None:
         decomposer_outputs = compute_decomposer_outputs(teacher, image)
-    combiner_outputs = teacher.eyebrow_morphing_combiner(
-        decomposer_outputs[eyebrow.DECOMPOSER_BACKGROUND_LAYER_INDEX],
-        decomposer_outputs[eyebrow.DECOMPOSER_EYEBROW_LAYER_INDEX],
-        pose[:, :NUM_EYEBROW_PARAMS],
-    )
+    with profiling.span("mode07.combiner"):
+        combiner_outputs = teacher.eyebrow_morphing_combiner(
+            decomposer_outputs[eyebrow.DECOMPOSER_BACKGROUND_LAYER_INDEX],
+            decomposer_outputs[eyebrow.DECOMPOSER_EYEBROW_LAYER_INDEX],
+            pose[:, :NUM_EYEBROW_PARAMS],
+        )
     eyebrow_morphed = combiner_outputs[teacher.cfg.eyebrow_morphed_image_index]
     face_input = image[:, 32:224, 160:352, :].clone()
     face_input[:, 32:160, 32:160, :] = eyebrow_morphed.to(face_input.dtype)
-    face_outputs = teacher.face_morpher(face_input, pose[:, NUM_EYEBROW_PARAMS : NUM_EYEBROW_PARAMS + NUM_FACE_PARAMS])
+    with profiling.span("mode07.face_morpher"):
+        face_outputs = teacher.face_morpher(face_input, pose[:, NUM_EYEBROW_PARAMS : NUM_EYEBROW_PARAMS + NUM_FACE_PARAMS])
     return tuple(face_outputs) + tuple(combiner_outputs) + tuple(decomposer_outputs)
 
 
@@ -178,10 +184,12 @@ def compute_outputs(teacher: Teacher, image: torch.Tensor, pose: torch.Tensor,
     face_morphed_half = resize_bilinear(face_morphed_full, (256, 256))
 
     rotation_pose = pose[:, NUM_EYEBROW_PARAMS + NUM_FACE_PARAMS :]
-    body_outputs = teacher.body_morpher(face_morphed_half, rotation_pose)
+    with profiling.span("mode07.body_morpher"):
+        body_outputs = teacher.body_morpher(face_morphed_half, rotation_pose)
     coarse_posed = resize_bilinear(body_outputs[body_morpher.INDEX_MERGED], (512, 512))
     coarse_grid = resize_bilinear(body_outputs[body_morpher.INDEX_GRID_CHANGE], (512, 512))
-    upscaler_outputs = teacher.upscaler(face_morphed_full, coarse_posed, coarse_grid, rotation_pose)
+    with profiling.span("mode07.upscaler"):
+        upscaler_outputs = teacher.upscaler(face_morphed_full, coarse_posed, coarse_grid, rotation_pose)
     return tuple(upscaler_outputs) + (face_morphed_full,) + tuple(body_outputs) + face_outputs
 
 

@@ -21,7 +21,7 @@ from tha4_tpu_torch.models import siren
 from tha4_tpu_torch.ops.cuda_siren import PackedChain
 from tha4_tpu_torch.poser.modes.pose_parameters import get_pose_parameters
 from tha4_tpu_torch.poser.poser import PoseParameterGroup, Poser
-from tha4_tpu_torch.utils import precision
+from tha4_tpu_torch.utils import precision, profiling
 
 KEY_FACE_MORPHER = "face_morpher"
 KEY_BODY_MORPHER = "body_morpher"
@@ -107,17 +107,17 @@ class StudentPoser(Poser):
 
     def get_posing_outputs(self, image, pose) -> List[torch.Tensor]:
         """image (N,H,W,4) or (H,W,4), pose (N,45) or (45,), numpy or tensors."""
-        image = torch.as_tensor(image, device=self.device)
-        pose = torch.as_tensor(pose, dtype=torch.float32, device=self.device)
-        if image.dim() == 3:
-            image = image[None]
-        if pose.dim() == 1:
-            pose = pose[None]
         with torch.inference_mode(), precision.matmul_precision(self.matmul_precision):
-            outs = compute_outputs(
-                self.face_cfg, self.body_cfg, self.face_chain, self.body_chains,
-                image.to(self.compute_dtype), pose.to(self.compute_dtype),
-            )
+            with profiling.span("mode14.upload"):
+                image = torch.as_tensor(image, device=self.device)
+                pose = torch.as_tensor(pose, dtype=torch.float32, device=self.device)
+                if image.dim() == 3:
+                    image = image[None]
+                if pose.dim() == 1:
+                    pose = pose[None]
+                image, pose = image.to(self.compute_dtype), pose.to(self.compute_dtype)
+            with profiling.span("mode14.compute"):
+                outs = compute_outputs(self.face_cfg, self.body_cfg, self.face_chain, self.body_chains, image, pose)
             return [o.float() for o in outs]
 
     def pose(self, image, pose, output_index: Optional[int] = None) -> torch.Tensor:
