@@ -1,9 +1,12 @@
 """The port's mocap stack against the JAX package's: the same recorded traces
 through both packages' replay streams and pose converters, the same packets
 through both parsers, calibration files across packages, and a UDP
-round-trip through the port's receiver.
+round-trip through the port's receiver.  Within the port: the converters'
+native viseme solve against their numpy loop, its counter and its
+self-check.
 
-Both packages run the same numpy and stdlib code, so poses are held to be
+Both packages run the same numpy and stdlib code, and the port's native
+solve the same BLAS routines and IEEE operations, so poses are held to be
 exactly equal: the same Python floats, in the same order.
 """
 
@@ -25,6 +28,7 @@ from tha4_tpu_torch.apps import puppeteer
 from tha4_tpu_torch.mocap import calibration as cal
 from tha4_tpu_torch.mocap import ifacialmocap
 from tha4_tpu_torch.mocap import ifacialmocap_constants as C
+from tha4_tpu_torch.mocap import ifacialmocap_pose_converter as ifm_converter
 from tha4_tpu_torch.mocap.ifacialmocap_pose_converter import EyebrowDownMode, IFacialMocapPoseConverter
 from tha4_tpu_torch.mocap.mediapipe_face_pose import MediaPipeFacePose
 from tha4_tpu_torch.mocap.mediapipe_face_pose_converter import MediaPipeFacePoseConverter
@@ -85,6 +89,66 @@ def test_replayed_poses_equal_jax(kind, case):
         assert pa == pb, (k, [(i, x, y) for i, (x, y) in enumerate(zip(pa, pb)) if x != y])
     if case == "breathing":
         assert pa[port._idx["breathing"]] > 0.0
+
+
+@pytest.mark.parametrize("case", ["default", "breathing", "calibrated"])
+@pytest.mark.parametrize("kind", ["ifacialmocap", "mediapipe"])
+def test_native_and_numpy_solves_give_equal_poses(kind, case):
+    """The same replayed trace through a converter with the native viseme
+    solve and one with the numpy loop: the same pose lists."""
+    poses = {}
+    for native in (True, False):
+        if kind == "mediapipe":
+            conv = MediaPipeFacePoseConverter(native=native)
+        else:
+            conv = IFacialMocapPoseConverter(native=native)
+        if case == "breathing":
+            conv.args.breathing_frequency = 17.0
+        elif case == "calibrated":
+            cal.apply_overrides(conv.args, MP_OVERRIDES if kind == "mediapipe" else OVERRIDES)
+        conv.breathing_start_time = 1000.0
+        before = dict(ifm_converter.VISEME_SOLVES)
+        poses[native] = [conv.convert(p, now=1000.0 + k / 30.0)
+                         for k, p in enumerate(puppeteer.file_pose_stream(TRACES[kind]))]
+        path = "native" if native else "numpy"
+        assert ifm_converter.VISEME_SOLVES[path] > before[path]  # the trace opens the mouth
+    assert len(poses[True]) == 90 and poses[True] == poses[False]
+
+
+def test_the_solve_counter_counts_each_path():
+    packet = ifacialmocap.create_default_ifacialmocap_pose()
+    packet.update({C.JAW_OPEN: 0.6, C.MOUTH_FUNNEL: 0.3, C.MOUTH_PUCKER: 0.2})
+    native, numpy_ = IFacialMocapPoseConverter(), IFacialMocapPoseConverter(native=False)
+    assert native.native and not numpy_.native
+    before = dict(ifm_converter.VISEME_SOLVES)
+    native.convert(packet)
+    native.convert(packet)
+    numpy_.convert(packet)
+    native.convert(ifacialmocap.create_default_ifacialmocap_pose())  # the mouth closed: no solve
+    assert ifm_converter.VISEME_SOLVES["native"] - before["native"] == 2
+    assert ifm_converter.VISEME_SOLVES["numpy"] - before["numpy"] == 1
+
+
+def test_the_self_check_raises_when_a_bit_differs(monkeypatch):
+    """A probe's expectation one ulp off: building a native converter
+    raises; one with the numpy loop is still built."""
+    loop = ifm_converter.solve_viseme_decomposition
+    probe = ifm_converter._viseme_probes()[7]
+
+    def off_by_one_ulp(point, *args):
+        d = loop(point, *args)
+        return np.nextafter(d, 2.0) if np.array_equal(point, probe) else d
+
+    monkeypatch.setattr(ifm_converter, "solve_viseme_decomposition", off_by_one_ulp)
+    ifm_converter.native_viseme_solver.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="differs from the numpy loop"):
+            IFacialMocapPoseConverter()
+        with pytest.raises(RuntimeError, match="differs from the numpy loop"):
+            MediaPipeFacePoseConverter()
+        assert IFacialMocapPoseConverter(native=False)._solve is off_by_one_ulp
+    finally:
+        ifm_converter.native_viseme_solver.cache_clear()
 
 
 def test_mediapipe_head_calibration_equals_jax():

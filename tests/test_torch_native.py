@@ -2,12 +2,15 @@
 package's: the image codec against ``tha4_tpu/native/loader.py``'s output,
 ``load_image_hwc`` against the JAX function, the iFacialMocap receiver's
 UDP round trip on its native drain thread and on the socket, and a failed
-build, which raises (the JAX loader returns None there).
+build, which raises (the JAX loader returns None there).  The viseme
+solve's build flags and its lookup of numpy's BLAS routines (its arithmetic
+is held to the numpy loop in tests/test_torch_viseme.py).
 
 Needs ``g++``.  The UDP tests bind ports 49320-49321 (the JAX suite's
 tests/test_mocap.py takes 49310-49311, and test files run in parallel).
 """
 
+import hashlib
 import math
 import socket
 import time
@@ -21,6 +24,7 @@ from tha4_tpu.native import loader as jloader
 from tha4_tpu_torch.core import imagecodec
 from tha4_tpu_torch.mocap import ifacialmocap
 from tha4_tpu_torch.mocap import ifacialmocap_constants as C
+from tha4_tpu_torch.mocap import ifacialmocap_pose_converter as ifm_converter
 from tha4_tpu_torch.native import loader
 
 CODEC_ATOL = 2e-6  # tests/test_native_codec.py:27
@@ -38,6 +42,52 @@ def test_library_is_built_into_the_build_dir_by_digest():
     assert path.parent == loader.BUILD_DIR and path.name.startswith("codec_") and path.suffix == ".so"
     assert path == loader.library_path(loader.SOURCES / "codec.cpp")
     assert not list(loader.SOURCES.glob("*.so"))
+
+
+def test_viseme_library_builds_with_its_own_flag_in_its_digest(tmp_path, monkeypatch):
+    """viseme.cpp is compiled with -ffp-contract=off, and the flag enters its
+    library's digest; the codec's and the receiver's libraries keep the
+    names the common flags alone give them."""
+    source = loader.SOURCES / "viseme.cpp"
+    assert loader.VISEME_FLAGS == ("-ffp-contract=off",)
+    assert loader.library_path(source, loader.VISEME_FLAGS) != loader.library_path(source)
+    assert loader.get_viseme_library()._name == str(loader.library_path(source, loader.VISEME_FLAGS))
+    for name in ("codec.cpp", "mocap_receiver.cpp"):
+        digest = hashlib.sha256(" ".join(loader.GXX_FLAGS).encode())
+        digest.update(loader._compiler_version().encode())
+        digest.update((loader.SOURCES / name).read_bytes())
+        assert loader.library_path(loader.SOURCES / name).name == f"{name[:-4]}_{digest.hexdigest()[:16]}.so"
+
+    calls = []
+    run_gxx = loader._run_gxx
+    monkeypatch.setattr(loader, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(loader, "_run_gxx", lambda args: calls.append(list(args)) or run_gxx(args))
+    built = loader.build(source, loader.VISEME_FLAGS)
+    assert built.is_file() and built.parent == tmp_path
+    assert calls[-1][:len(loader.GXX_FLAGS) + 1] == [*loader.GXX_FLAGS, "-ffp-contract=off"]
+    assert calls[-1][-1] == str(source)
+
+
+def test_numpy_blas_routines_are_resolved_in_numpys_blas():
+    """Both routines come from one library that the process mapped, under
+    one naming, with the integer width that naming says."""
+    blas = loader.numpy_cblas()
+    assert blas.dgemv_name.endswith("cblas_dgemv" + ("64_" if blas.ilp64 else ""))
+    assert blas.ddot_name == blas.dgemv_name.replace("dgemv", "ddot")
+    assert blas.dgemv and blas.ddot
+
+    def mapped_file(address):
+        with open("/proc/self/maps") as maps:
+            for line in maps:
+                fields = line.split()
+                lo, hi = (int(x, 16) for x in fields[0].split("-"))
+                if lo <= address < hi:
+                    return fields[-1]
+        return None
+
+    library = mapped_file(blas.dgemv)
+    assert library is not None and "blas" in library.lower(), library
+    assert mapped_file(blas.ddot) == library
 
 
 @pytest.mark.parametrize("premultiply", [True, False])
@@ -119,19 +169,29 @@ def test_a_failed_build_raises_with_the_compiler_output(tmp_path):
     assert not list(loader.BUILD_DIR.glob("broken*"))
 
 
-@pytest.mark.parametrize("what", ["receiver", "codec"])
+def _clear_library_caches():
+    for cached in (loader.get_codec_library, loader.get_mocap_library, loader.get_viseme_library,
+                   ifm_converter.native_viseme_solver):
+        cached.cache_clear()
+
+
+@pytest.mark.parametrize("what", ["receiver", "codec", "viseme"])
 def test_callers_raise_when_the_native_build_fails(tmp_path, monkeypatch, what):
     """No silent fallback: with sources that do not compile, the native
-    receiver and the native decode raise; ``native=False`` still works."""
-    for name in ("codec.cpp", "mocap_receiver.cpp"):
+    receiver, the native decode and a converter with the native viseme
+    solve raise; ``native=False`` still works."""
+    for name in ("codec.cpp", "mocap_receiver.cpp", "viseme.cpp"):
         (tmp_path / name).write_text("#error broken on purpose\n")
     monkeypatch.setattr(loader, "SOURCES", tmp_path)
-    loader.get_codec_library.cache_clear()
-    loader.get_mocap_library.cache_clear()
+    _clear_library_caches()
     try:
         if what == "receiver":
             with pytest.raises(RuntimeError, match="broken on purpose"):
                 ifacialmocap.IFacialMocapReceiver(port=49322).start()
+        elif what == "viseme":
+            with pytest.raises(RuntimeError, match="broken on purpose"):
+                ifm_converter.IFacialMocapPoseConverter()
+            assert not ifm_converter.IFacialMocapPoseConverter(native=False).native
         else:
             image = PIL.Image.fromarray(np.full((4, 4, 4), 100, np.uint8), "RGBA")
             image.putpixel((0, 0), (1, 2, 3, 4))
@@ -139,5 +199,4 @@ def test_callers_raise_when_the_native_build_fails(tmp_path, monkeypatch, what):
                 imagecodec.load_image_hwc(image)
             assert imagecodec.load_image_hwc(image, native=False).shape == (4, 4, 4)
     finally:
-        loader.get_codec_library.cache_clear()
-        loader.get_mocap_library.cache_clear()
+        _clear_library_caches()

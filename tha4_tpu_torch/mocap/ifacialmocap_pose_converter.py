@@ -1,6 +1,6 @@
 """iFacialMocap blendshapes -> 45-dim THA4 pose (counterpart of
-``tha4_tpu/mocap/ifacialmocap_pose_converter.py``): numpy and stdlib, and
-one ``utils.profiling`` span around the viseme solve.
+``tha4_tpu/mocap/ifacialmocap_pose_converter.py``): numpy and stdlib, the
+viseme solve in native code, and one ``utils.profiling`` span around it.
 
 Faithful port of the reference converter math
 (reference: src/tha4/mocap/ifacialmocap_pose_converter_25.py:397-607):
@@ -11,13 +11,18 @@ setters on the args object; breathing is a pure function of a supplied clock.
 
 The reference solves the viseme decomposition with scipy.optimize.minimize
 per frame (:574-580).  Here it is a fixed-iteration projected-gradient solve
-of the same objective (||d @ M - p||_2 + 0.01 ||d||_1, d in [0,1]^4) —
-deterministic, allocation-free, and fast enough to run at any frame rate;
-parity with scipy is covered by tests.
+of the same objective (||d @ M - p||_2 + 0.01 ||d||_1, d in [0,1]^4),
+deterministic; parity with scipy is covered by tests.  As a Python loop of
+numpy calls (``solve_viseme_decomposition``, the definition) it takes ~5 ms
+a call, most of a live frame.  So the converter runs the same 300 steps in
+one native call (``native/viseme.cpp``) on numpy's own BLAS routines, bit
+for bit; the first converter built checks that on a probe set and raises if
+a bit differs.  ``native=False`` keeps the numpy loop.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from enum import Enum
@@ -38,6 +43,7 @@ from tha4_tpu_torch.mocap.ifacialmocap_constants import (
     MOUTH_LOWER_DOWN_LEFT, MOUTH_LOWER_DOWN_RIGHT, MOUTH_PUCKER,
     MOUTH_SHRUG_UPPER, MOUTH_SMILE_LEFT, MOUTH_SMILE_RIGHT,
 )
+from tha4_tpu_torch.native import loader
 from tha4_tpu_torch.poser.modes.pose_parameters import get_pose_parameters
 from tha4_tpu_torch.utils import profiling
 
@@ -73,18 +79,53 @@ VISEME_MATRIX = np.array(
 
 def solve_viseme_decomposition(mouth_point, iterations: int = 300, lr: float = 0.02) -> np.ndarray:
     """argmin_{d in [0,1]^4} ||d @ M - p||_2 + 0.01 ||d||_1 via projected
-    gradient with fixed iteration count (deterministic scipy replacement)."""
-    with profiling.span("ifm.viseme_solve"):
-        p = np.asarray(mouth_point, np.float64)
-        m = VISEME_MATRIX
-        d = np.zeros(4)
-        for _ in range(iterations):
-            r = d @ m - p
-            norm = np.linalg.norm(r)
-            grad_l2 = (r @ m.T) / norm if norm > 1e-12 else np.zeros(4)
-            grad = grad_l2 + 0.01 * np.sign(d)
-            d = np.clip(d - lr * grad, 0.0, 1.0)
-        return d
+    gradient with fixed iteration count (deterministic scipy replacement).
+    The definition that the native solve is held to, bit for bit."""
+    p = np.asarray(mouth_point, np.float64)
+    m = VISEME_MATRIX
+    d = np.zeros(4)
+    for _ in range(iterations):
+        r = d @ m - p
+        norm = np.linalg.norm(r)
+        grad_l2 = (r @ m.T) / norm if norm > 1e-12 else np.zeros(4)
+        grad = grad_l2 + 0.01 * np.sign(d)
+        d = np.clip(d - lr * grad, 0.0, 1.0)
+    return d
+
+
+def solve_viseme_decomposition_native(mouth_point, iterations: int = 300, lr: float = 0.02) -> np.ndarray:
+    """``solve_viseme_decomposition``'s steps in one native call, on the
+    ``cblas_dgemv`` and ``cblas_ddot`` that numpy's matmul and dot call."""
+    return loader.viseme_solve(VISEME_MATRIX, mouth_point, iterations, lr)
+
+
+def _viseme_probes() -> np.ndarray:
+    """The self-check's 16 points: zero and a point inside the norm guard
+    (its branch), the four viseme rows, the unit corners, two points outside
+    [0,1]^4 and three seeded ones."""
+    edges = [np.zeros(4), [1e-13, 0.0, 0.0, 0.0], *VISEME_MATRIX, *np.eye(4), np.ones(4),
+             [-0.1, 1.2, -0.05, 1.1], [2.0, -1.0, 0.3, 0.0]]
+    seeded = np.random.default_rng(20240601).uniform(-0.1, 1.2, size=(3, 4))
+    return np.concatenate([np.asarray(edges, np.float64), seeded])
+
+
+@functools.lru_cache(maxsize=1)
+def native_viseme_solver():
+    """``solve_viseme_decomposition_native``, once built and checked: raise
+    unless it gives the numpy loop's bytes on every probe."""
+    for point in _viseme_probes():
+        native, reference = solve_viseme_decomposition_native(point), solve_viseme_decomposition(point)
+        if native.tobytes() != reference.tobytes():
+            raise RuntimeError(
+                f"the native viseme solve differs from the numpy loop at {point.tolist()}: {native.tolist()} "
+                f"against {reference.tolist()} (numpy's BLAS: {loader.numpy_cblas().dgemv_name}); "
+                "build the converter with native=False")
+    return solve_viseme_decomposition_native
+
+
+# Viseme solves by path since the module was imported (converters of every
+# instance; the self-check's probes are not counted).
+VISEME_SOLVES = {"native": 0, "numpy": 0}
 
 
 class IFacialMocapPoseConverterArgs:
@@ -132,8 +173,12 @@ class IFacialMocapPoseConverterArgs:
 
 
 class IFacialMocapPoseConverter:
-    def __init__(self, args: Optional[IFacialMocapPoseConverterArgs] = None):
+    def __init__(self, args: Optional[IFacialMocapPoseConverterArgs] = None, native: bool = True):
+        """``native``: the viseme solve in native code (built and checked
+        here, raising on failure), else the numpy loop."""
         self.args = args or IFacialMocapPoseConverterArgs()
+        self.native = native
+        self._solve = native_viseme_solver() if native else solve_viseme_decomposition
         pp = get_pose_parameters()
         self.pose_size = pp.get_parameter_count()
         self._idx = {}
@@ -263,7 +308,9 @@ class IFacialMocapPoseConverter:
             mouth_funnel = m[MOUTH_FUNNEL]
             mouth_pucker = m[MOUTH_PUCKER]
             mouth_point = [mouth_open, mouth_lower_down, mouth_funnel, mouth_pucker]
-            decomp = solve_viseme_decomposition(mouth_point)
+            with profiling.span("ifm.viseme_solve"):
+                decomp = self._solve(mouth_point)
+            VISEME_SOLVES["native" if self.native else "numpy"] += 1
             pose[idx["mouth_aaa"]] = float(decomp[0])
             pose[idx["mouth_iii"]] = float(decomp[1])
             mouth_funnel_denom = args.mouth_funnel_max - args.mouth_funnel_min

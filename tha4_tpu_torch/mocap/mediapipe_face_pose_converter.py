@@ -60,8 +60,8 @@ class MediaPipeFacePoseConverter(IFacialMocapPoseConverter):
     """Shares all blendshape math with the iFacialMocap converter; overrides
     the head-rotation source and the frown-branch fix."""
 
-    def __init__(self, args: Optional[MediaPipeFacePoseConverterArgs] = None):
-        super().__init__(args or MediaPipeFacePoseConverterArgs())
+    def __init__(self, args: Optional[MediaPipeFacePoseConverterArgs] = None, native: bool = True):
+        super().__init__(args or MediaPipeFacePoseConverterArgs(), native)
 
     def extract_euler_angles(self, face_pose: MediaPipeFacePose) -> np.ndarray:
         return matrix_to_euler_xyz(np.asarray(face_pose.xform_matrix)[0:3, 0:3])

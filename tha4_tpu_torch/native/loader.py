@@ -1,12 +1,19 @@
-"""Build-on-first-use loader for the native mocap receiver and image codec
-(counterpart of ``tha4_tpu/native/loader.py``).
+"""Build-on-first-use loader for the native mocap receiver, image codec and
+viseme solve (counterpart of ``tha4_tpu/native/loader.py``, which has no
+viseme solve).
 
 Each library is a plain shared object, ``g++ -O3 -shared -fPIC -pthread``
-of one source in this directory, called through ``ctypes``.  It is built at
-first use into ``tha4_tpu_torch/_build/`` (ignored by git), named by a
-digest of its source, the flags and the compiler's version, so an edited
-source is rebuilt, an unchanged one reused, and nothing is written beside
-the sources.
+(plus the library's own extra flags, if any) of one source in this
+directory, called through ``ctypes``.  It is built at first use into
+``tha4_tpu_torch/_build/`` (ignored by git), named by a digest of its
+source, the flags and the compiler's version, so an edited source is
+rebuilt, an unchanged one reused, and nothing is written beside the
+sources.
+
+The viseme solve calls numpy's own ``cblas_dgemv`` and ``cblas_ddot``:
+``numpy_cblas`` finds them in the BLAS library that numpy's
+``_multiarray_umath`` loaded, so the native loop does the same arithmetic as
+numpy on whatever CPU runs it.
 
 Unlike the JAX loader, nothing here returns ``None``: a missing compiler or
 a failed build raises with the compiler's output.  Callers reach the numpy
@@ -19,17 +26,22 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
 SOURCES = Path(__file__).resolve().parent
 BUILD_DIR = SOURCES.parent / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
+# viseme.cpp must round every elementwise step on its own, as numpy does:
+# no multiply-add fused into an FMA where that is baseline (aarch64).
+VISEME_FLAGS = ("-ffp-contract=off",)
 
 _lock = threading.Lock()
 
@@ -46,17 +58,18 @@ def _compiler_version() -> str:
     return _run_gxx(["--version"]).stdout
 
 
-def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+def library_path(source: Path, extra_flags=()) -> Path:
+    digest = hashlib.sha256(" ".join((*GXX_FLAGS, *extra_flags)).encode())
     digest.update(_compiler_version().encode())
     digest.update(source.read_bytes())
     return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build(source: Path) -> Path:
-    """Compile ``source`` unless a library for it exists; raise on failure."""
+def build(source: Path, extra_flags=()) -> Path:
+    """Compile ``source`` (with ``extra_flags`` after the common flags)
+    unless a library for it exists; raise on failure."""
     with _lock:
-        so = library_path(source)
+        so = library_path(source, extra_flags)
         if so.is_file():
             return so
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -64,7 +77,7 @@ def build(source: Path) -> Path:
         fd, partial = tempfile.mkstemp(dir=BUILD_DIR, prefix=so.stem + ".", suffix=".partial")
         os.close(fd)
         try:
-            proc = _run_gxx([*GXX_FLAGS, "-o", partial, str(source)])
+            proc = _run_gxx([*GXX_FLAGS, *extra_flags, "-o", partial, str(source)])
             if proc.returncode != 0:
                 raise RuntimeError(f"g++ failed ({proc.returncode}) on {source.name}:\n{proc.stdout}{proc.stderr}")
             os.replace(partial, so)
@@ -103,6 +116,77 @@ def get_mocap_library() -> ctypes.CDLL:
     lib.tha4_mocap_rx_stop.argtypes = [ctypes.c_void_p]
     lib.tha4_mocap_rx_stop.restype = None
     return lib
+
+
+# The CBLAS names numpy's builds export, most specific first: the scipy-openblas
+# wheels' ILP64 names (numpy 2), OpenBLAS's ILP64 suffix (numpy 1 wheels),
+# then LP64.  The suffix ``64_`` means 64-bit integer arguments.
+_CBLAS_NAMES = (("scipy_", "64_"), ("", "64_"), ("scipy_", ""), ("", ""))
+
+
+class NumpyCblas(NamedTuple):
+    dgemv_name: str
+    ddot_name: str
+    ilp64: bool
+    dgemv: int  # addresses
+    ddot: int
+
+
+def _numpy_umath_path() -> str:
+    try:
+        module = importlib.import_module("numpy._core._multiarray_umath")  # numpy 2
+    except ImportError:
+        module = importlib.import_module("numpy.core._multiarray_umath")
+    return module.__file__
+
+
+@functools.lru_cache(maxsize=1)
+def numpy_cblas() -> NumpyCblas:
+    """``cblas_dgemv`` and ``cblas_ddot`` as numpy calls them: looked up
+    through the handle of numpy's ``_multiarray_umath``, which searches that
+    module and the libraries it loaded (its BLAS), and no other.  Raises
+    unless both are found under one naming."""
+    umath_path = _numpy_umath_path()
+    umath = ctypes.CDLL(umath_path)
+    for prefix, suffix in _CBLAS_NAMES:
+        names = (f"{prefix}cblas_dgemv{suffix}", f"{prefix}cblas_ddot{suffix}")
+        try:
+            dgemv, ddot = (ctypes.cast(getattr(umath, name), ctypes.c_void_p).value for name in names)
+        except AttributeError:
+            continue
+        return NumpyCblas(*names, suffix == "64_", dgemv, ddot)
+    tried = ", ".join(f"{p}cblas_dgemv{s}" for p, s in _CBLAS_NAMES)
+    raise RuntimeError(f"numpy's BLAS routines not found from {umath_path} (tried {tried}): "
+                       "the native viseme solve needs the cblas_dgemv and cblas_ddot that numpy calls")
+
+
+@functools.lru_cache(maxsize=1)
+def get_viseme_library() -> ctypes.CDLL:
+    """The native viseme solve (``viseme.cpp``), built on first call with
+    ``VISEME_FLAGS``."""
+    lib = ctypes.CDLL(str(build(SOURCES / "viseme.cpp", VISEME_FLAGS)))
+    lib.tha4_viseme_solve.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_void_p,
+    ]
+    lib.tha4_viseme_solve.restype = None
+    return lib
+
+
+def viseme_solve(matrix, point, iterations: int, lr: float) -> np.ndarray:
+    """``iterations`` projected-gradient steps of ``||d @ matrix - point||_2
+    + 0.01 ||d||_1`` over d in [0,1]^4 from d = 0, in one native call on
+    numpy's BLAS routines; returns d (float64, shape (4,))."""
+    m = np.ascontiguousarray(matrix, np.float64)
+    p = np.ascontiguousarray(point, np.float64)
+    if m.shape != (4, 4) or p.shape != (4,):
+        raise ValueError(f"expected a (4, 4) matrix and a (4,) point, got {m.shape} and {p.shape}")
+    d = np.empty(4)
+    blas = numpy_cblas()
+    get_viseme_library().tha4_viseme_solve(
+        blas.dgemv, blas.ddot, int(blas.ilp64), m.ctypes.data, p.ctypes.data, iterations, lr, d.ctypes.data,
+    )
+    return d
 
 
 def _rgba(image: np.ndarray, dtype) -> np.ndarray:
