@@ -11,7 +11,8 @@ Phases, one or more lines each:
 3. K1 (``sine_chain_t``) against its plain PyTorch version at the four call
    shapes of one frame, f32 and bf16, with max-abs error, median times, the
    restated bound (the products at the peak for their type against the
-   fast_sin epilogue on the CUDA cores, each printed) and its share;
+   fast_sin epilogue on the CUDA cores, each printed) and its share
+   (``python3 chip_smoke.py --phase k1`` runs it alone after phases 1-2);
 4. K2 (``grid_sample_fast``) against its plain version at 512^2 x 4, f32 and
    bf16, on a smooth grid and on one with displacements past 150 px, timed
    two ways beside ``F.grid_sample``: the card's own time (a CUDA graph of
@@ -3737,6 +3738,20 @@ def main_tools_alone(torch) -> int:
     return 0
 
 
+def main_k1_alone(torch) -> int:
+    """``--phase k1``: phase 3 alone, after the device and the build."""
+    from tha4_tpu_torch.models import siren
+
+    gen = torch.Generator().manual_seed(SEED)
+    face, body = siren.SirenFaceMorpher(generator=gen), siren.SirenMorpher(generator=gen)
+    with torch.inference_mode():
+        k1 = phase_k1(torch, face, body)
+    print(json.dumps(k1))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3749,6 +3764,8 @@ def main() -> int:
     # f32 means full-f32 products on both sides of every comparison.
     precision.set_full_f32()
     build_s = phase_build()
+    if sys.argv[1:] == ["--phase", "k1"]:
+        return main_k1_alone(torch)
     if sys.argv[1:] == ["--phase", "int8"]:
         return main_int8_alone(torch)
     if sys.argv[1:] == ["--phase", "ddp"]:
@@ -3758,8 +3775,8 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "tools"]:
         return main_tools_alone(torch)
     if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --phase int8, --phase ddp, --phase rest or "
-                         "--phase tools")
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --phase k1, --phase int8, --phase ddp, "
+                         "--phase rest or --phase tools")
 
     from tha4_tpu_torch.models import siren
 

@@ -18,7 +18,8 @@ from tha4_tpu_torch.models import siren
 from tha4_tpu_torch.ops import cuda_siren, cuda_warp
 from tha4_tpu_torch.ops.warp import identity_grid
 from test_torch_siren_fold import (
-    K1_CASES, SUM_ORDER_SENSITIVE, chain_t_exact, chain_t_folded, k1_bf16_bar, k1_case, max_diff, random_chain,
+    K1_CASES, K1_F32_CASES, SUM_ORDER_SENSITIVE, chain_t_exact, chain_t_folded, k1_bf16_bar, k1_case, max_diff,
+    random_chain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -34,8 +35,9 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cp,dims,head,hw", K1_CASES)
+@pytest.mark.parametrize("dtype,cp,dims,head,hw", [
+    (dtype, *case) for case in K1_CASES for dtype in (torch.float32, torch.bfloat16)
+] + [(torch.float32, *case) for case in K1_F32_CASES])
 def test_sine_chain_kernel_matches_plain(card, dtype, cp, dims, head, hw):
     prev, pos, pose, chain = k1_case(cp, dims, head, hw, dtype, card)
     before = cuda_siren.sine_chain_t.launches
@@ -69,6 +71,35 @@ def test_sine_chain_kernel_at_the_sum_order_witness(card):
                 "folded_vs_f64": max_diff(folded, exact), "bar": k1_bf16_bar(plain)}
     print(f"K1 bf16 witness on the card: {readings}")
     assert readings["kernel_vs_f64"] <= max(readings["plain_vs_f64"], readings["folded_vs_f64"]), readings
+
+
+@pytest.mark.parametrize("level", ["face", 0, 1, 2])
+def test_f32_sine_chain_kernel_at_the_sum_order_witness(card, level):
+    """The f32 kernel at one of the frame's four chains (shipped widths and
+    sizes, SIREN init, N = 1) beside the plain version on the card and on
+    the CPU and the f64 run: the kernel is no farther from the f64 run than
+    the farther of the two plain f32 versions (each of its outputs is one
+    FMA chain over k in order)."""
+    gen = torch.Generator().manual_seed(7)
+    face, body = siren.SirenFaceMorpher(generator=gen), siren.SirenMorpher(generator=gen)
+    if level == "face":
+        chain, size, cp, pose_dim = face.pack(torch.float32), face.cfg.image_size, 0, face.cfg.pose_size
+    else:
+        chain, size, pose_dim = body.pack(torch.float32)[level], body.cfg.levels[level].image_size, body.cfg.pose_size
+        cp = 0 if level == 0 else body.cfg.levels[level].intermediate_channels
+    prev = torch.rand((1, cp, size * size), generator=gen) * 2 - 1 if cp else None
+    cpu = (prev, siren.pos_t(size, torch.float32, "cpu"), torch.rand((1, pose_dim), generator=gen))
+    on_card = tuple(None if t is None else t.to(card) for t in cpu)
+    card_chain = cuda_siren.PackedChain(chain.w.to(card), chain.b.to(card), chain.specs, chain.num_sine,
+                                        chain.tiles.to(card))
+    out = cuda_siren.sine_chain_t(*on_card, card_chain)
+    plain = cuda_siren.chain_t_plain(*on_card, card_chain)
+    exact = chain_t_exact(*on_card, card_chain)
+    plain_cpu = cuda_siren.chain_t_plain(*cpu, chain)
+    readings = {"kernel_vs_plain": max_diff(out, plain), "kernel_vs_f64": max_diff(out, exact),
+                "plain_vs_f64": max_diff(plain, exact), "plain_cpu_vs_f64": max_diff(plain_cpu, exact.cpu())}
+    print(f"K1 f32 witness, level {level}, on the card: {readings}")
+    assert readings["kernel_vs_f64"] <= max(readings["plain_vs_f64"], readings["plain_cpu_vs_f64"]), readings
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)])
@@ -165,6 +196,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                 None, torch.zeros((2, 64), device=card, dtype=dtype), torch.zeros((1, 45), device=card), wide,
                 torch.zeros((1, dims[-1], 64), device=card, dtype=dtype),
             )
+    # The f32 K1: past its smallest tile's shared memory, and a weight
+    # layout that is not the chain's.
+    wide = random_chain(np.random.default_rng(0), [47, 700, 8], 0, torch.float32, card)
+    pos = torch.zeros((2, 64), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_siren.sine_chain_t(None, pos, torch.zeros((1, 45), device=card), wide)
+    chain = random_chain(np.random.default_rng(0), [47, 90, 8], 0, torch.float32, card)
+    stale = cuda_siren.PackedChain(chain.w, chain.b, chain.specs, chain.num_sine, chain.tiles[:-4])
+    with pytest.raises(ValueError, match="stage layout"):
+        cuda_siren.sine_chain_t(None, pos, torch.zeros((1, 45), device=card), stale)
 
 
 def _warp_grid(rng, kind, n, h, w):

@@ -232,4 +232,61 @@ def test_tile_layout_round_trips_to_each_layer(dims, head):
         np.testing.assert_array_equal(got, want)
         offset += used
     assert offset == flat.size
-    assert cuda_siren.pack_chain([(torch.zeros(4, 5), torch.zeros(4))], None, torch.float32).tiles is None
+    f32 = cuda_siren.pack_chain([(torch.zeros(4, 5), torch.zeros(4))], None, torch.float32)
+    assert f32.tiles.numel() == cuda_siren.f32_layout_elems(f32.specs)
+
+
+@pytest.mark.parametrize("dims,head", LEVEL_DIMS + [([12, 100, 61, 3], 1), ([30, 500, 20], 0)])
+def test_f32_stage_layout_round_trips_to_each_layer(dims, head):
+    """Read back, the f32 layout holds, for every layer, pass of the plan's
+    tile and 32 input channels, W^T's block padded with zeros to the pass's
+    channels plus 4 and to 32 rows, in the kernel's order, and nothing else."""
+    rng = np.random.default_rng(len(dims))
+    layers = _layers(rng, dims)
+    chain = _pack(layers[: len(layers) - head], layers[-1] if head else None, torch.float32)
+    tile, _ = cuda_siren.f32_plan(chain.specs)
+    cols = cuda_siren._f32_pass_channels(tile)
+    flat = chain.tiles.numpy()
+    offset = 0
+    for i in range(chain.num_layers):
+        w = chain.layer(i)[0].numpy()
+        co, ci = w.shape
+        for o0 in range(0, co, cols):
+            for k0 in range(0, ci, 32):
+                image = flat[offset : offset + 32 * (cols + 4)].reshape(32, cols + 4)
+                want = np.zeros_like(image)
+                block = w[o0 : o0 + cols, k0 : k0 + 32].T
+                want[: block.shape[0], : block.shape[1]] = block
+                np.testing.assert_array_equal(image, want)
+                offset += image.size
+    assert offset == flat.size == cuda_siren.f32_layout_elems(chain.specs)
+
+
+# The f32 kernel's chains: the frame's four (the face student's is also its
+# training chain, at any batch) and the ragged and wide card cases.
+F32_PLAN_CASES = [
+    ([41] + [128] * 8 + [4], 64, 99328), ([47, 360, 360, 180], 64, 218112), ([227, 180, 180, 90], 64, 152576),
+    ([137, 90, 90, 90, 7], 64, 107520), ([12, 100, 61, 3], 64, 87040), ([30, 500, 20], 32, 195584),
+]
+
+
+@pytest.mark.parametrize("dims,tile,smem", F32_PLAN_CASES)
+def test_f32_plan_fits_each_chain_in_one_block(dims, tile, smem):
+    """The plan takes the larger tile where both activation buffers (the
+    widest layer, padded to 8 rows) and both weight stages fit a Hopper
+    block's 227 KB, else the smaller."""
+    specs = cuda_siren.chain_specs([(co, ci) for ci, co in zip(dims[:-1], dims[1:])])
+    assert cuda_siren.f32_plan(specs) == (tile, smem)
+    assert smem <= 232448
+    rows = -(-max(dims) // 8) * 8
+    assert smem == 4 * (2 * rows * tile + 2 * 32 * (256 // (tile // 4) * 8 + 4))
+
+
+@pytest.mark.parametrize("dims", [[47, 700, 8], [2000, 16]])
+def test_f32_plan_raises_on_a_chain_no_tile_fits(dims):
+    specs = cuda_siren.chain_specs([(co, ci) for ci, co in zip(dims[:-1], dims[1:])])
+    with pytest.raises(ValueError, match="shared memory per block at the smallest tile"):
+        cuda_siren.f32_plan(specs)
+    chain = cuda_siren.pack_chain([(torch.zeros(co, ci), torch.zeros(co)) for ci, co in zip(dims[:-1], dims[1:])],
+                                  None, torch.float32)
+    assert chain.tiles is None

@@ -30,6 +30,15 @@ K1_CASES = [
     # N of 4, a one-layer chain whose only layer is folded
     (3, [12, 4], 0, 64),
 ]
+# The f32 kernel's further card cases: the frame's four chains at their
+# shipped widths and sizes, a ragged chain (pixels not a multiple of 4 nor of
+# the tile, channels not a multiple of 8) and one too wide for the larger
+# tile (csrc/sine_chain.cu; ops/cuda_siren.py f32_plan).
+K1_F32_CASES = [
+    (0, [41] + [128] * 8 + [4], 1, 128 * 128), (0, [47, 360, 360, 180], 0, 128 * 128),
+    (180, [227, 180, 180, 90], 0, 256 * 256), (90, [137, 90, 90, 90, 7], 1, 512 * 512),
+    (5, [12, 100, 61, 3], 1, 999), (0, [30, 500, 20], 0, 777),
+]
 # The one of them where two f32 orders of the same bf16 arithmetic differ
 # by more than the bf16 bar (weights ten times SIREN's scale, 131072 outputs).
 SUM_ORDER_SENSITIVE = (6, [15, 40, 16], 0, 4096)

@@ -40,127 +40,265 @@
 // stream's round trips to the L2 cache (each 64-pixel tile reads the
 // level's weights once).
 //
-// f32, on the CUDA cores (sine_chain_kernel; no TF32 on an f32 path): one
-// CTA per (32-pixel tile, batch element), lane = pixel; two (Cmax x 32)
-// activation buffers in shared memory, ping-ponged between layers; each
-// thread owns 8 output channels of its pixel in f32 registers; weights read
-// through the read-only cache with a warp-uniform address, every level's
-// weights resident in the 50 MB L2.  That load, not the FMA, is what it waits
-// on: 5.4 ms a frame on an H100 SXM 80 GB at a 700 W power limit.
+// f32, on the CUDA cores (sine_chain_kernel; no TF32 on an f32 path), where
+// the products are the bound: 0.566 ms a frame at 67 TFLOP/s, plus 0.079 ms
+// of epilogue.  A register-tiled GEMM chain: one block of 256 threads per
+// (tile of 64 pixels, or 32 for a chain wider than 388 channels, batch
+// element; ops/cuda_siren.py f32_plan); two activation buffers (widest
+// layer x tile) in shared memory, ping-ponged between layers; each layer
+// walked in passes of the output channels the threads cover (128 at 64
+// pixels) and, within a pass, stages of 32 input channels.  A stage is an
+// image of W^T[k0:k0+32][pass] from the chain's layout (tile_layout, made
+// once per chain), copied by 16-byte cp.async into one of two stages while
+// the other is read.  Each thread holds 4 pixels x 8 channels in registers
+// and reads one float4 of activations and two of weights a k: 32 FMAs for
+// three shared-memory loads (90 registers, two blocks an SM where the
+// buffers allow; 8 x 8 a thread, 172 registers and one block, was slower on
+// the card).  Each output is still one FMA chain over k in order, so the
+// outputs are the earlier one-pixel-a-lane kernel's bit for bit.  The level
+// input is copied asynchronously, and the epilogue (bias, omega, fast_sin)
+// runs over a thread's 32 outputs without a branch.  On an H100 SXM 80 GB
+// at 700 W: 1.59 ms a frame back to back (face 0.13, levels 0.25, 0.49,
+// 0.73), 40 % of the bound, where the earlier kernel waited 5.4 ms on one
+// read-only load a FMA.  What a block waits on now, at level 2: the
+// products take 22 of its 46 us; barrier waits (a 90-channel layer keeps
+// six of eight warps busy, the 7-channel head one), the epilogue and the
+// level input's read the rest.
 
 #include "sine_chain_tc.cuh"
 
 namespace {
 
 constexpr int kMaxLayers = 16;
-constexpr int kTile = 32;   // pixels per CTA, one per lane
-constexpr int kWarps = 8;
-constexpr int kRows = 8;    // output channels per thread per pass
+constexpr int kThreads = 256;
+constexpr int kTM = 4;     // pixels a thread: 4 pg .. 4 pg + 3
+constexpr int kTN = 8;     // output channels a thread, contiguous
+constexpr int kKc = 32;    // input channels a weight stage holds
+constexpr int kKStep = 8;  // the depth a partial stage is read in; activation rows are padded to it
+
+// Output channels of one pass at a tile of p pixels, the row stride of a
+// weight stage (4 floats of padding, so that its rows start on other banks)
+// and its floats; a block's shared memory: two activation buffers of
+// ``rows`` x p floats and two stages.  ops/cuda_siren.py computes the same
+// (f32_smem_bytes, the layout's stage images).
+__host__ __device__ constexpr int pass_channels(int p) { return kThreads / (p / kTM) * kTN; }
+__host__ __device__ constexpr int stage_stride(int p) { return pass_channels(p) + 4; }
+__host__ __device__ constexpr int stage_floats(int p) { return kKc * stage_stride(p); }
+__host__ __device__ constexpr size_t smem_bytes(int p, int rows) {
+  return 4 * (2 * static_cast<size_t>(rows) * p + 2 * static_cast<size_t>(stage_floats(p)));
+}
 
 struct ChainSpec {
   int num_layers;
   int num_sine;
-  int cmax;
+  int rows;  // the widest of the level input and every layer, rounded up to kKStep
   int ci[kMaxLayers];
   int co[kMaxLayers];
-  int w_off[kMaxLayers];
   int b_off[kMaxLayers];
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-sine_chain_kernel(const T* __restrict__ prev, int cp, const T* __restrict__ pos,
-                  const float* __restrict__ pose, int pose_dim, const T* __restrict__ w,
-                  const float* __restrict__ b, const ChainSpec spec, float omega,
-                  T* __restrict__ out, int hw) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* h = reinterpret_cast<T*>(smem_raw);
-  T* nxt = h + spec.cmax * kTile;
+// The weight layout's floats at tile p: one stage image for every layer,
+// pass and kKc input channels, in the order the kernel reads them.
+long long layout_floats(const ChainSpec& s, int p) {
+  long long total = 0;
+  for (int l = 0; l < s.num_layers; ++l)
+    total += static_cast<long long>(tha4::tc::cdiv(s.co[l], pass_channels(p))) * tha4::tc::cdiv(s.ci[l], kKc) *
+             stage_floats(p);
+  return total;
+}
 
-  const int n = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int px = blockIdx.x * kTile + lane;
-  const bool valid = px < hw;
-  const T zero = tha4::from_f32<T>(0.0f);
+// The stage a block works on: layer l, the pass's first channel group cg0,
+// input channels k0 .. k0 + kKc.
+struct Chunk {
+  int l, cg0, k0;
+};
 
-  // Level input [prev | pos | pose] in the compute dtype.
-  const int cin = cp + 2 + pose_dim;
-  for (int c = warp; c < cin; c += kWarps) {
-    T v;
-    if (c < cp) {
-      v = valid ? prev[(static_cast<size_t>(n) * cp + c) * hw + px] : zero;
-    } else if (c < cp + 2) {
-      v = valid ? pos[static_cast<size_t>(c - cp) * hw + px] : zero;
-    } else {
-      v = tha4::from_f32<T>(pose[static_cast<size_t>(n) * pose_dim + (c - cp - 2)]);
-    }
-    h[c * kTile + lane] = v;
-  }
-  __syncthreads();
+// The chunk after c (layers, then passes, then K); false after the last.
+template <int P>
+__device__ __forceinline__ bool next_chunk(Chunk& c, const ChainSpec& s) {
+  c.k0 += kKc;
+  if (c.k0 < s.ci[c.l]) return true;
+  c.k0 = 0;
+  c.cg0 += pass_channels(P) / kTN;
+  if (c.cg0 * kTN < s.co[c.l]) return true;
+  c.cg0 = 0;
+  return ++c.l < s.num_layers;
+}
 
-  for (int l = 0; l < spec.num_layers; ++l) {
-    const int ci = spec.ci[l];
-    const int co = spec.co[l];
-    const T* wl = w + spec.w_off[l];
-    const float* bl = b + spec.b_off[l];
-    const bool sine = l < spec.num_sine;
-    const bool last = l == spec.num_layers - 1;
+// One stage image of the layout into shared memory, 16 bytes a copy.
+template <int P>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src) {
+  for (int i = threadIdx.x; i < stage_floats(P) / 4; i += kThreads) tha4::cp_async16(dst + 4 * i, src + 4 * i);
+  tha4::cp_async_commit();
+}
 
-    for (int r0 = warp * kRows; r0 < co; r0 += kWarps * kRows) {
-      const T* wrow[kRows];
-      float acc[kRows];
+// acc[i][j] += W^T[k][j] h[k][i] for K rows of the activations (row stride
+// P) and of the stage, k in order, one FMA a product.
+template <int P, int K>
+__device__ __forceinline__ void fma_rows(float (&acc)[kTM][kTN], const float* h, const float* ws) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        // Rows past co read the last row again; their sums are never stored.
-        wrow[r] = wl + static_cast<size_t>(min(r0 + r, co - 1)) * ci;
-        acc[r] = 0.0f;
-      }
-      for (int k = 0; k < ci; ++k) {
-        const float hv = tha4::to_f32<T>(h[k * kTile + lane]);
+  for (int k = 0; k < K; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(h + k * P);
+    const float4 w0 = *reinterpret_cast<const float4*>(ws + k * stage_stride(P));
+    const float4 w1 = *reinterpret_cast<const float4*>(ws + k * stage_stride(P) + 4);
+    const float av[kTM] = {a.x, a.y, a.z, a.w};
+    const float wv[kTN] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          acc[r] = fmaf(tha4::ldg_f32<T>(wrow[r] + k), hv, acc[r]);
-        }
-      }
+    for (int i = 0; i < kTM; ++i)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int o = r0 + r;
-        if (o >= co) break;
-        float a = __fadd_rn(acc[r], __ldg(bl + o));
-        if (sine) a = tha4::fast_sin(__fmul_rn(omega, a));
-        const T v = tha4::from_f32<T>(a);
-        if (last) {
-          if (valid) out[(static_cast<size_t>(n) * co + o) * hw + px] = v;
-        } else {
-          nxt[o * kTile + lane] = v;
-        }
-      }
-    }
-    __syncthreads();
-    T* t = h;
-    h = nxt;
-    nxt = t;
+      for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(wv[j], av[i], acc[i][j]);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* prev, int cp, const void* pos, const void* pose, int pose_dim,
-                   const void* w, const void* b, const ChainSpec& spec, float omega, void* out,
-                   int n, int hw, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(spec.cmax) * kTile * sizeof(T);
-  if (smem > 48 * 1024) {
-    // Set on every launch: the attribute is per device, and the call is cheap.
-    cudaError_t e = cudaFuncSetAttribute(sine_chain_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+// One block: the tile of P pixels at blockIdx.x of batch element blockIdx.y.
+// Thread t owns pixels 4 pg .. 4 pg + 3 (pg = t % (P / kTM)) and the kTN
+// channels of channel group t / (P / kTM) of every pass.  ``vec``: prev
+// and pos are read 16 bytes at a time (hw % 4 == 0, both 16-byte aligned).
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+sine_chain_kernel(const float* __restrict__ prev, int cp, const float* __restrict__ pos,
+                  const float* __restrict__ pose, int pose_dim, const float* __restrict__ layout,
+                  const float* __restrict__ b, const __grid_constant__ ChainSpec spec, float omega,
+                  float* __restrict__ out, int hw, bool vec) {
+  constexpr int kGroups = P / kTM;
+  constexpr int kStage = stage_floats(P);
+  extern __shared__ __align__(16) float smem[];
+  float* const buf0 = smem;
+  float* const buf1 = smem + spec.rows * P;
+  float* const stages = smem + 2 * spec.rows * P;
+
+  const int n = blockIdx.y;
+  const int px0 = blockIdx.x * P;
+  const int pg = threadIdx.x % kGroups;
+  const int cgl = threadIdx.x / kGroups;
+
+  // Level input [prev | pos | pose] into buf0, 4 pixels at a time: prev and
+  // pos copied asynchronously (zeros past hw), pose broadcast; buf0's rows
+  // past cin and all of buf1 zero, so that every padded K reads finite
+  // values beside the layout's zero weights.
+  const int cin = cp + 2 + pose_dim;
+  for (int i = threadIdx.x; i < spec.rows * (P / 4); i += kThreads) {
+    const int c = i / (P / 4);
+    const int px = px0 + 4 * (i % (P / 4));
+    float4* dst = reinterpret_cast<float4*>(buf0) + i;
+    reinterpret_cast<float4*>(buf1)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float* src = c < cp       ? prev + (static_cast<size_t>(n) * cp + c) * hw + px
+                       : c < cp + 2 ? pos + static_cast<size_t>(c - cp) * hw + px
+                                    : nullptr;
+    if (src != nullptr && vec) {
+      tha4::cp_async16_zfill(dst, px < hw ? src : pos, px < hw);
+    } else if (src != nullptr) {
+      float e[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) e[u] = px + u < hw ? src[u] : 0.0f;
+      *dst = make_float4(e[0], e[1], e[2], e[3]);
+    } else {
+      const float v = c < cin ? pose[static_cast<size_t>(n) * pose_dim + (c - cp - 2)] : 0.0f;
+      *dst = make_float4(v, v, v, v);
+    }
   }
-  const dim3 grid((hw + kTile - 1) / kTile, n);
-  sine_chain_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(prev), cp, static_cast<const T*>(pos),
-      static_cast<const float*>(pose), pose_dim, static_cast<const T*>(w),
-      static_cast<const float*>(b), spec, omega, static_cast<T*>(out), hw);
+  stage<P>(stages, layout);
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+
+  Chunk cur{0, 0, 0};
+  int in = 0;
+  for (int step = 0;; ++step) {
+    // This chunk's stage has landed, every thread is done with the other
+    // stage, and the last layer's outputs are in place.
+    tha4::cp_async_wait<0>();
+    __syncthreads();
+    Chunk nxt = cur;
+    const bool more = next_chunk<P>(nxt, spec);
+    if (more) stage<P>(stages + ((step + 1) & 1) * kStage, layout + static_cast<size_t>(step + 1) * kStage);
+
+    const int l = cur.l;
+    const int ci = spec.ci[l];
+    const int co = spec.co[l];
+    const int o0 = (cur.cg0 + cgl) * kTN;
+    const bool last_chunk = cur.k0 + kKc >= ci;
+    float bias[kTN];
+    if (last_chunk) {
+      // Loaded before the products, which hide its latency.
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) bias[j] = __ldg(b + spec.b_off[l] + min(o0 + j, co - 1));
+    }
+    if (o0 < co) {
+      const float* h = (in ? buf1 : buf0) + cur.k0 * P + kTM * pg;
+      const float* ws = stages + (step & 1) * kStage + kTN * cgl;
+      const int depth = min(kKc, ci - cur.k0);
+      if (depth == kKc) {
+        fma_rows<P, kKc>(acc, h, ws);
+      } else {
+        for (int k = 0; k < depth; k += kKStep) fma_rows<P, kKStep>(acc, h + k * P, ws + k * stage_stride(P));
+      }
+    }
+
+    if (last_chunk) {
+      // The pass's epilogue, element by element: the f32 bias, then omega
+      // and fast_sin for a sine layer; into the other buffer, or out.
+      if (o0 < co) {
+        if (l < spec.num_sine) {
+#pragma unroll
+          for (int i = 0; i < kTM; ++i)
+#pragma unroll
+            for (int j = 0; j < kTN; ++j) acc[i][j] = tha4::fast_sin(__fmul_rn(omega, __fadd_rn(acc[i][j], bias[j])));
+        } else {
+#pragma unroll
+          for (int i = 0; i < kTM; ++i)
+#pragma unroll
+            for (int j = 0; j < kTN; ++j) acc[i][j] = __fadd_rn(acc[i][j], bias[j]);
+        }
+        const bool last = l == spec.num_layers - 1;
+        const int px = px0 + kTM * pg;
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+          const int o = o0 + j;
+          if (o >= co) continue;
+          const float4 q = make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+          if (!last) {
+            *reinterpret_cast<float4*>((in ? buf0 : buf1) + o * P + kTM * pg) = q;
+          } else {
+            float* dst = out + (static_cast<size_t>(n) * co + o) * hw + px;
+            if (vec && px < hw) {
+              *reinterpret_cast<float4*>(dst) = q;
+            } else if (!vec) {
+              const float e[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                if (px + u < hw) dst[u] = e[u];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+    }
+    if (!more) break;
+    if (nxt.l != l) in ^= 1;
+    cur = nxt;
+  }
+}
+
+template <int P>
+cudaError_t launch(const float* prev, int cp, const float* pos, const float* pose, int pose_dim, const float* layout,
+                   const float* b, const ChainSpec& spec, float omega, float* out, int n, int hw, bool vec,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(P, spec.rows);
+  if (smem > tha4::tc::kSmemLimit) return cudaErrorInvalidValue;
+  // Set on every launch: the attribute is per device, and the call is cheap.
+  cudaError_t e = cudaFuncSetAttribute(sine_chain_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(tha4::tc::cdiv(hw, P), n);
+  sine_chain_kernel<P><<<grid, kThreads, smem, stream>>>(prev, cp, pos, pose, pose_dim, layout, b, spec, omega, out, hw,
+                                                         vec);
   return cudaGetLastError();
 }
 
@@ -307,32 +445,49 @@ extern "C" int tha4_sine_chain_tc_forward(const void* prev, int cp, const void* 
 }
 
 // K1, f32.  specs: host int32 array of num_layers rows (ci, co, w_off,
-// b_off); w_off and b_off are element offsets into the packed weight and bias
-// buffers.  Returns a cudaError_t (0 on success).
+// b_off); b_off are element offsets into the packed bias buffer.  layout:
+// the chain's weights as the kernel's stage images at this tile
+// (ops/cuda_siren.py tile_layout), layout_elems its floats; tile: the
+// pixels of a block, 64 or 32 (ops/cuda_siren.py f32_plan).  Returns a
+// cudaError_t (0 on success).
 extern "C" int tha4_sine_chain_forward(const void* prev, int has_prev, int cp, const void* pos,
-                                       const void* pose, int pose_dim, const void* w,
-                                       const void* b, const void* specs, int num_layers,
-                                       int num_sine, float omega, void* out, int n, int hw,
-                                       void* stream) {
-  if (num_layers < 1 || num_layers > kMaxLayers || num_sine > num_layers || n < 1 || hw < 1)
+                                       const void* pose, int pose_dim, const void* layout,
+                                       long long layout_elems, const void* b, const void* specs,
+                                       int num_layers, int num_sine, float omega, void* out, int n,
+                                       int hw, int tile, void* stream) {
+  if (num_layers < 1 || num_layers > kMaxLayers || num_sine > num_layers || n < 1 || n > 65535 || hw < 1)
     return cudaErrorInvalidValue;
   if (!has_prev) cp = 0;
+  if (cp > 0 && prev == nullptr) return cudaErrorInvalidValue;
   ChainSpec spec;
   spec.num_layers = num_layers;
   spec.num_sine = num_sine;
-  spec.cmax = cp + 2 + pose_dim;
+  int widest = cp + 2 + pose_dim;
   const int* rows = static_cast<const int*>(specs);
   for (int l = 0; l < num_layers; ++l) {
     spec.ci[l] = rows[4 * l + 0];
     spec.co[l] = rows[4 * l + 1];
-    spec.w_off[l] = rows[4 * l + 2];
     spec.b_off[l] = rows[4 * l + 3];
     if (spec.co[l] < 1 || (l > 0 && spec.ci[l] != spec.co[l - 1])) return cudaErrorInvalidValue;
-    if (spec.co[l] > spec.cmax) spec.cmax = spec.co[l];
+    if (spec.co[l] > widest) widest = spec.co[l];
   }
   if (spec.ci[0] != cp + 2 + pose_dim) return cudaErrorInvalidValue;
+  spec.rows = tha4::tc::cdiv(widest, kKStep) * kKStep;
+  if ((tile != 64 && tile != 32) || layout_elems != layout_floats(spec, tile)) return cudaErrorInvalidValue;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (!aligned(layout) || !aligned(out)) return cudaErrorInvalidValue;
+  const bool vec = hw % 4 == 0 && aligned(pos) && (cp == 0 || aligned(prev));
+  const float* f_prev = static_cast<const float*>(prev);
+  const float* f_pos = static_cast<const float*>(pos);
+  const float* f_pose = static_cast<const float*>(pose);
+  const float* f_layout = static_cast<const float*>(layout);
+  const float* f_b = static_cast<const float*>(b);
+  float* f_out = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(launch<float>(prev, cp, pos, pose, pose_dim, w, b, spec, omega, out, n, hw, s));
+  const cudaError_t e =
+      tile == 64 ? launch<64>(f_prev, cp, f_pos, f_pose, pose_dim, f_layout, f_b, spec, omega, f_out, n, hw, vec, s)
+                 : launch<32>(f_prev, cp, f_pos, f_pose, pose_dim, f_layout, f_b, spec, omega, f_out, n, hw, vec, s);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* tha4_cuda_error_string(int e) {

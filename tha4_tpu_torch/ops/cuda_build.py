@@ -33,10 +33,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # prev, has_prev, cp, pos, pose, pose_dim, w, b, specs, num_layers,
-    # num_sine, omega, out, n, hw, stream
-    "tha4_sine_chain_forward": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
-                                ctypes.c_float, _P, _I, _I, _P],
+    # prev, has_prev, cp, pos, pose, pose_dim, layout, layout elements, b,
+    # specs, num_layers, num_sine, omega, out, n, hw, tile, stream
+    "tha4_sine_chain_forward": [_P, _I, _I, _P, _P, _I, _P, _L, _P, _P, _I, _I,
+                                ctypes.c_float, _P, _I, _I, _I, _P],
     # prev, has_prev, cp, pos, pose, pose_dim, w, b, specs, num_layers,
     # num_sine, omega, gout, dprev, scratch, blocks, grads, n, hw, stream
     "tha4_sine_chain_backward": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,

@@ -22,8 +22,10 @@ Precision rule (``tha4_tpu/ops/pallas_util.py:kernel_dot_precision``):
 Weights are packed once per poser and dtype (``pack_chain``): each layer's
 (Co, Ci) matrix, which is the squeezed 1x1-conv weight as stored, flattened
 into one buffer in the compute dtype, and the biases into one f32 buffer.
-In bf16 the chain also carries the tensor-core kernels' tile layout of the
-same weights (``tile_index``; csrc/sine_chain_tc.cuh), made by one gather.
+The chain also carries the same weights in its K1 kernel's layout, made by
+one gather (``tile_layout``): in bf16 the tensor-core kernels' tiles
+(``tile_index``; csrc/sine_chain_tc.cuh), in f32 the CUDA-core kernel's
+weight-stage images (csrc/sine_chain.cu).
 
 Two designs per kernel: bf16 runs on the tensor cores (``wgmma``, the
 ``tha4_sine_chain_tc_*`` entry points), f32 on the CUDA cores (no TF32).
@@ -85,8 +87,8 @@ class PackedChain:
     compute dtype.  ``b``: the biases concatenated, f32.  ``specs``: one
     (ci, co, w_offset, b_offset) row per layer, int32, on the host.  The
     first ``num_sine`` layers have a sine; a remaining last layer is the head.
-    ``tiles``: bf16 only, ``w`` in the tensor-core kernels' tile layout
-    (``tile_layout``); None in f32.
+    ``tiles``: ``w`` in the K1 kernel's weight layout for the dtype
+    (``tile_layout``).
     """
 
     w: torch.Tensor
@@ -167,17 +169,100 @@ def tile_index(specs: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _tile_index_tensor(spec_rows, device) -> torch.Tensor:
-    return torch.from_numpy(_tile_index(spec_rows)).to(device)
+def _tile_index_tensor(spec_bytes: bytes, f32: bool, device) -> torch.Tensor:
+    rows = tuple(tuple(int(v) for v in row) for row in _spec_rows(spec_bytes))
+    return torch.from_numpy(_f32_stage_index(spec_bytes) if f32 else _tile_index(rows)).to(device)
 
 
 def tile_layout(w: torch.Tensor, specs: np.ndarray) -> Optional[torch.Tensor]:
-    """``w`` (packed bf16) in the tensor-core kernels' tile layout: one
-    gather; None for f32, whose kernels read the packed matrices."""
-    if w.dtype != torch.bfloat16:
-        return None
-    index = _tile_index_tensor(tuple(tuple(int(v) for v in row) for row in specs), w.device)
+    """``w`` in its K1 kernel's weight layout, one gather: bf16 in the
+    tensor-core kernels' tile layout (``tile_index``); f32 as the CUDA-core
+    kernel's stage images (csrc/sine_chain.cu): for every layer, every pass
+    of ``_f32_pass_channels`` output channels at the chain's ``f32_plan``
+    tile and every ``_F32_KC`` input channels, W^T's rows k of that block,
+    each padded with zeros to the pass's channels plus 4, zero rows past
+    the layer's input channels.  None for an f32 chain no tile fits."""
+    f32 = w.dtype == torch.float32
+    spec_bytes = specs.tobytes()
+    if f32 and _f32_tile(spec_bytes) is None:
+        return None  # no tile fits: sine_chain_t raises with f32_plan's reason
+    index = _tile_index_tensor(spec_bytes, f32, w.device)
     return torch.cat([w, w.new_zeros(1)])[index]
+
+
+# csrc/sine_chain.cu, the f32 kernel: threads a block, pixels and output
+# channels a thread, input channels a weight stage, the depth activation
+# rows are padded to, and the pixel tiles it is built for, in the order the
+# plan tries them.
+_F32_THREADS, _F32_TM, _F32_TN, _F32_KC, _F32_KSTEP = 256, 4, 8, 32, 8
+_F32_TILES = (64, 32)
+_SMEM_LIMIT = 232448  # 227 KB, the most one block may use on Hopper
+
+
+def _f32_pass_channels(tile: int) -> int:
+    """Output channels of one pass of the f32 kernel at ``tile`` pixels."""
+    return _F32_THREADS // (tile // _F32_TM) * _F32_TN
+
+
+def f32_smem_bytes(tile: int, rows: int) -> int:
+    """Shared memory of one block of the f32 K1 (csrc/sine_chain.cu
+    smem_bytes): two activation buffers of ``rows`` x ``tile`` floats and two
+    weight stages of ``_F32_KC`` rows of one pass's channels, padded by 4."""
+    return 4 * (2 * rows * tile + 2 * _F32_KC * (_f32_pass_channels(tile) + 4))
+
+
+def _spec_rows(spec_bytes: bytes) -> np.ndarray:
+    return np.frombuffer(spec_bytes, dtype=np.int32).reshape(-1, 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _f32_tile(spec_bytes: bytes) -> Optional[Tuple[int, int]]:
+    specs = _spec_rows(spec_bytes)
+    widest = int(max(specs[0, 0], specs[:, 1].max()))
+    rows = -(-widest // _F32_KSTEP) * _F32_KSTEP
+    for tile in _F32_TILES:
+        smem = f32_smem_bytes(tile, rows)
+        if smem <= _SMEM_LIMIT:
+            return tile, smem
+    return None
+
+
+def f32_plan(specs: np.ndarray) -> Tuple[int, int]:
+    """The f32 K1's plan for a chain: (pixels a block, shared memory bytes a
+    block).  The tile is the first of ``_F32_TILES`` whose two activation
+    buffers (rows: the chain's widest layer or level input, padded to 8)
+    and two weight stages fit one Hopper block; raises where none does."""
+    plan = _f32_tile(specs.tobytes())
+    if plan is None:
+        widest = int(max(specs[0, 0], specs[:, 1].max()))
+        need = f32_smem_bytes(_F32_TILES[-1], -(-widest // _F32_KSTEP) * _F32_KSTEP)
+        raise ValueError(f"sine_chain_t: a {widest}-channel f32 chain needs {need} bytes of shared memory per block "
+                         f"at the smallest tile ({_F32_TILES[-1]} pixels), over the {_SMEM_LIMIT} a Hopper block "
+                         "may use")
+    return plan
+
+
+@functools.lru_cache(maxsize=64)
+def _f32_stage_index(spec_bytes: bytes) -> np.ndarray:
+    specs = _spec_rows(spec_bytes)
+    cols = _f32_pass_channels(_f32_tile(spec_bytes)[0])
+    last_ci, last_co, last_w, _ = (int(v) for v in specs[-1])
+    zero = last_w + last_co * last_ci  # the index of the appended 0
+    parts = []
+    for ci, co, wo, _ in (tuple(int(v) for v in row) for row in specs):
+        for o0 in range(0, co, cols):
+            for k0 in range(0, ci, _F32_KC):
+                image = np.full((_F32_KC, cols + 4), zero, dtype=np.int64)
+                o = np.arange(o0, min(o0 + cols, co))
+                k = np.arange(k0, min(k0 + _F32_KC, ci))
+                image[: len(k), : len(o)] = wo + o[None, :] * ci + k[:, None]
+                parts.append(image.ravel())
+    return np.concatenate(parts)
+
+
+def f32_layout_elems(specs: np.ndarray) -> int:
+    """The floats of a chain's f32 stage layout (``tile_layout``)."""
+    return int(_f32_stage_index(specs.tobytes()).size)
 
 
 def chain_specs(shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
@@ -255,10 +340,15 @@ def sine_chain_t(
             out.data_ptr(), fold.data_ptr(), n, hw, stream,
         )
     else:
+        tile, _ = f32_plan(chain.specs)
+        tiles = chain.tiles
+        if tiles is None or tiles.numel() != f32_layout_elems(chain.specs) or tiles.device != pos_t.device:
+            raise ValueError(f"sine_chain_t: chain.tiles is not this chain's f32 stage layout on {pos_t.device} "
+                             "(tile_layout)")
         status = lib.tha4_sine_chain_forward(
             prev_ptr, int(prev is not None), cp, pos_t.data_ptr(), pose.data_ptr(), pose.shape[1],
-            chain.w.data_ptr(), chain.b.data_ptr(), chain.specs.ctypes.data,
-            chain.num_layers, chain.num_sine, float(omega), out.data_ptr(), n, hw, stream,
+            tiles.data_ptr(), tiles.numel(), chain.b.data_ptr(), chain.specs.ctypes.data,
+            chain.num_layers, chain.num_sine, float(omega), out.data_ptr(), n, hw, tile, stream,
         )
     cuda_build.check(status, "sine_chain_t")
     sine_chain_t.launches += 1
@@ -266,9 +356,6 @@ def sine_chain_t(
 
 
 sine_chain_t.launches = 0
-
-
-_SMEM_LIMIT = 232448  # 227 KB, the most one block may use on Hopper
 
 
 @functools.lru_cache(maxsize=8)
