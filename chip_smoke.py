@@ -198,10 +198,19 @@ Phases, one or more lines each:
     (checkpoint 2, equal to ``tools.body_eval`` on the trainer's own module
     to f32 rounding, the exported ``.pt`` loaded into ``SirenMorpher`` equal
     to the checkpoint); each arm's evaluation and ms a step, and the
-    phase's seconds.
+    phase's seconds;
+19. R1 (``ops.cuda_resize``, the bilinear resize; ``python3 chip_smoke.py
+    --phase resize`` runs it alone after phases 1-2) at the f32 frame's two
+    level upsamples (NCHW, B = 1) and the body student's two training
+    levels (NHWC bf16, B = 8, forward and adjoint): equal to its plain
+    version bit for bit, the adjoint within its bar of the plain gradient
+    and deterministic; the card's own times beside the bytes' bound, the
+    port's dense interpolation-matrix GEMMs (its resize before R1, kept
+    here as the baseline) and ``F.interpolate(mode="bilinear",
+    align_corners=False)`` for reference.
 
 The line before the last is a JSON object with one entry per kernel (K1,
-K2, K3's forward and grid backward, K4-K6, the fold, Q1, and K7 and the TPU
+K2, K3's forward and grid backward, K4-K6, the fold, Q1, R1, and K7 and the TPU
 probe ``tools/warp_probe.py`` under their counterparts K6 and K2), each
 with its bound: the larger of the bytes it
 must move over 3.35 TB/s and its multiply-adds over the card's peak for
@@ -666,7 +675,7 @@ def phase_main_path(torch, workdir: str) -> dict:
     from tha4_tpu_torch.apps import character_model_manual_poser
     from tha4_tpu_torch.charmodel import CharacterModel
     from tha4_tpu_torch.charmodel.synthetic import FLOW_SCALE, write_random_character_model
-    from tha4_tpu_torch.ops import cuda_siren, cuda_warp
+    from tha4_tpu_torch.ops import cuda_resize, cuda_siren, cuda_warp
     from tha4_tpu_torch.tools import bench
 
     yaml_path = write_random_character_model(os.path.join(workdir, "model"), seed=SEED)
@@ -677,14 +686,17 @@ def phase_main_path(torch, workdir: str) -> dict:
 
     cuda_siren.sine_chain_t.launches = 0
     cuda_warp.grid_sample_fast.launches = 0
+    cuda_resize.bilinear_resize_forward.launches = 0
     outputs = {tag: [poser.get_posing_outputs(image, pose) for pose in poses] for tag, poser in posers.items()}
     torch.cuda.synchronize()
-    launches = {"sine_chain_t": cuda_siren.sine_chain_t.launches, "grid_sample_fast": cuda_warp.grid_sample_fast.launches}
+    launches = {"sine_chain_t": cuda_siren.sine_chain_t.launches, "grid_sample_fast": cuda_warp.grid_sample_fast.launches,
+                "bilinear_resize_forward": cuda_resize.bilinear_resize_forward.launches}
     frames = FRAMES * len(posers)
     print(f"main path: {frames} frames at B=1 (bf16 and f32, {FRAMES} poses each): "
-          f"K1 launches {launches['sine_chain_t']}, K2 launches {launches['grid_sample_fast']}")
-    if launches != {"sine_chain_t": 4 * frames, "grid_sample_fast": frames}:
-        raise AssertionError(f"expected {4 * frames} K1 and {frames} K2 launches, got {launches}")
+          f"K1 launches {launches['sine_chain_t']}, K2 launches {launches['grid_sample_fast']}, "
+          f"R1 launches {launches['bilinear_resize_forward']}")
+    if launches != {"sine_chain_t": 4 * frames, "grid_sample_fast": frames, "bilinear_resize_forward": 2 * frames}:
+        raise AssertionError(f"expected {4 * frames} K1, {frames} K2 and {2 * frames} R1 launches, got {launches}")
 
     for tag, outs in outputs.items():
         for outs_i in outs:
@@ -3738,6 +3750,145 @@ def main_tools_alone(torch) -> int:
     return 0
 
 
+# R1's cases: (name, layout, dtype, input shape, output size, with the adjoint).
+R1_CASES = [
+    ("frame L0->L1", "nchw", "f32", (1, 180, 128, 128), (256, 256), False),
+    ("frame L1->L2", "nchw", "f32", (1, 90, 256, 256), (512, 512), False),
+    ("train L0->L1", "nhwc", "bf16", (TRAIN_BATCH, 128, 128, 180), (256, 256), True),
+    ("train L1->L2", "nhwc", "bf16", (TRAIN_BATCH, 256, 256, 90), (512, 512), True),
+]
+
+
+def _dense_resize(torch, size_in, size_out, channels_last):
+    """The port's bilinear resize before R1, the phase's baseline: two f32
+    interpolation-matrix GEMMs (the matrices made once, here), H then W, on
+    the NCHW view, then a cast to the input dtype."""
+    from tha4_tpu_torch.ops.cuda_resize import _taps_np
+
+    mats = []
+    for n_in, n_out in zip(size_in, size_out):
+        taps = _taps_np(n_in, n_out)
+        m = np.zeros((n_in, n_out), dtype=np.float32)
+        cols = np.arange(n_out)
+        m[taps[:, 0], cols] += taps[:, 2].view(np.float32)
+        m[taps[:, 1], cols] += taps[:, 3].view(np.float32)
+        mats.append(torch.from_numpy(m).cuda())
+    mh, mw = mats
+
+    def nchw(x):
+        return torch.matmul(torch.matmul(mh.T, x.float()), mw).to(x.dtype)
+
+    return (lambda x: nchw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)) if channels_last else nchw
+
+
+def phase_resize(torch) -> dict:
+    """R1 at the frame's and the body student's shapes (phase 19)."""
+    from tha4_tpu_torch.ops import cuda_resize
+
+    F = torch.nn.functional
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    results = {"cases": {}, "max_abs_err": 0.0, "max_bwd_err": 0.0}
+    launches = cuda_resize.bilinear_resize_forward.launches + cuda_resize.bilinear_resize_backward.launches
+    gen = torch.Generator().manual_seed(SEED + 19)
+    for name, layout, tag, shape, size, adjoint in R1_CASES:
+        dtype, cl = dtypes[tag], layout == "nhwc"
+        x = (torch.rand(shape, generator=gen) * 2.0 - 1.0).to("cuda", dtype)
+        in_size = shape[1:3] if cl else shape[2:]
+        out = cuda_resize.resize(x, size, cl)
+        ref = cuda_resize.resize_plain(x, size, cl)
+        view = x[:, :, :, 1:] if cl else x[:, :, 1:, :]
+        view_out, view_ref = cuda_resize.resize(view, size, cl), cuda_resize.resize_plain(view, size, cl)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in ((out, ref), (view_out, view_ref)))
+        results["max_abs_err"] = max(results["max_abs_err"], err)
+        if out.dtype != dtype or not out.is_contiguous() or not torch.equal(out, ref) or not torch.equal(view_out, view_ref):
+            raise AssertionError(f"R1 {name}: not equal to its plain version ({out.dtype}, {err:.3e})")
+        del view_out, view_ref
+        dense = _dense_resize(torch, in_size, size, cl)
+        dense_err = float((dense(x).float() - ref.float()).abs().max())
+        nchw = x.permute(0, 3, 1, 2) if cl else x
+
+        def library(nchw=nchw, size=size):
+            return F.interpolate(nchw, size=size, mode="bilinear", align_corners=False)
+
+        calls = 5 if shape[0] > 1 else 20
+        case = {
+            "shape": list(shape), "size": list(size), "layout": layout, "dtype": tag,
+            "ms": _graph_ms(lambda x=x, size=size, cl=cl: cuda_resize.resize(x, size, cl), calls=calls),
+            "dense_ms": _graph_ms(lambda x=x, dense=dense: dense(x), calls=calls),
+            "library_ms": _graph_ms(library, calls=calls),
+            "plain_ms": _time_ms(lambda x=x, size=size, cl=cl: cuda_resize.resize_plain(x, size, cl), iters=5),
+            "dense_max_abs_diff": dense_err,
+            **_bound(_nbytes(x, out), 4.0 * out.numel(), "f32" if tag == "f32" else "bf16"),
+        }
+        case["bound_share"] = case["bound_ms"] / case["ms"]
+        text = (f"R1 {name} {layout} {tag} {tuple(shape)} -> {size}: max abs diff from plain {err:.3e} (contiguous and a sliced view); the card's own time (CUDA graph "
+                f"of {calls} calls) kernel {case['ms']:.4f} ms, dense GEMMs {case['dense_ms']:.4f} ms "
+                f"(max diff {dense_err:.2e}), F.interpolate {case['library_ms']:.4f} ms; bound {case['bound_ms']:.4f} "
+                f"ms ({case['bound_by']}), share {case['bound_share']:.3f}; plain {case['plain_ms']:.3f} ms")
+        if adjoint:
+            g = (torch.rand(out.shape, generator=gen) * 2.0 - 1.0).to("cuda", dtype)
+            dx = [cuda_resize.bilinear_resize_backward(g, in_size, cl) for _ in range(2)]
+            xr = x.detach().clone().requires_grad_(True)
+            (plain_dx,) = torch.autograd.grad(cuda_resize.resize_plain(xr, size, cl), xr, g)
+            torch.cuda.synchronize()
+            got, want = dx[0].float(), plain_dx.float()
+            step = torch.exp2(torch.floor(torch.log2(torch.maximum(got.abs(), want.abs()).clamp_min(2.0**-126))) - 7)
+            err = float(((got - want).abs() / step).max())
+            if not torch.equal(dx[0], dx[1]) or not err <= 1.0:
+                raise AssertionError(f"R1 {name} adjoint: {err:.3f} bf16 steps from the plain gradient, or two calls differ")
+            results["max_bwd_err"] = max(results["max_bwd_err"], err)
+            xg = x.detach().clone().requires_grad_(True)
+
+            def fwd_bwd(fn):
+                return lambda: torch.autograd.grad(fn(), xg, g)
+
+            def library_nhwc(xg=xg, size=size):
+                return F.interpolate(xg.permute(0, 3, 1, 2), size=size, mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+
+            bwd = _bound(_nbytes(g, dx[0]), 4.0 * g.numel(), "bf16")
+            case.update({
+                "bwd_ms": _graph_ms(lambda g=g, in_size=in_size, cl=cl: cuda_resize.bilinear_resize_backward(g, in_size, cl),
+                                    calls=calls),
+                "bwd_bound_ms": bwd["bound_ms"], "bwd_bound_by": bwd["bound_by"],
+                "bwd_err_steps": err,
+                "pair_autograd_ms": _device_ms(fwd_bwd(lambda: cuda_resize.resize(xg, size, cl)), reps=20, warmup=2),
+                "dense_pair_autograd_ms": _device_ms(fwd_bwd(lambda: dense(xg)), reps=20, warmup=2),
+                "library_pair_autograd_ms": _device_ms(fwd_bwd(library_nhwc if cl else lambda: library(xg, size)),
+                                                       reps=20, warmup=2),
+            })
+            case["bwd_bound_share"] = case["bwd_bound_ms"] / case["bwd_ms"]
+            text += (f"; adjoint {case['bwd_ms']:.4f} ms against {case['bwd_bound_ms']:.4f} ms "
+                     f"(share {case['bwd_bound_share']:.3f}), {err:.2f} bf16 steps from the plain gradient at most, two "
+                     f"calls bit-identical; forward + backward through autograd, 20 back to back: R1 "
+                     f"{case['pair_autograd_ms']:.4f} ms, dense GEMMs {case['dense_pair_autograd_ms']:.4f} ms, "
+                     f"F.interpolate {case['library_pair_autograd_ms']:.4f} ms")
+        print(text)
+        results["cases"][name] = case
+        del x, out, ref
+        torch.cuda.empty_cache()
+    frame = [results["cases"][k] for k in ("frame L0->L1", "frame L1->L2")]
+    results["frame_ms"] = sum(c["ms"] for c in frame)
+    results["frame_dense_ms"] = sum(c["dense_ms"] for c in frame)
+    results["frame_library_ms"] = sum(c["library_ms"] for c in frame)
+    results["frame_plain_ms"] = sum(c["plain_ms"] for c in frame)
+    results["frame_bound_ms"] = sum(c["bound_ms"] for c in frame)
+    results["launches"] = (cuda_resize.bilinear_resize_forward.launches + cuda_resize.bilinear_resize_backward.launches
+                           - launches)
+    print(f"R1 a frame (both upsamples, f32): kernel {results['frame_ms']:.4f} ms, dense GEMMs "
+          f"{results['frame_dense_ms']:.4f} ms, F.interpolate {results['frame_library_ms']:.4f} ms, bound "
+          f"{results['frame_bound_ms']:.4f} ms (share {results['frame_bound_ms'] / results['frame_ms']:.3f})")
+    return results
+
+
+def main_resize_alone(torch) -> int:
+    """``--phase resize``: phase 19 alone, after the device and the build."""
+    print(json.dumps(phase_resize(torch)))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main_k1_alone(torch) -> int:
     """``--phase k1``: phase 3 alone, after the device and the build."""
     from tha4_tpu_torch.models import siren
@@ -3774,9 +3925,11 @@ def main() -> int:
         return main_rest_alone(torch)
     if sys.argv[1:] == ["--phase", "tools"]:
         return main_tools_alone(torch)
+    if sys.argv[1:] == ["--phase", "resize"]:
+        return main_resize_alone(torch)
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --phase k1, --phase int8, --phase ddp, "
-                         "--phase rest or --phase tools")
+                         "--phase rest, --phase tools or --phase resize")
 
     from tha4_tpu_torch.models import siren
 
@@ -3810,6 +3963,8 @@ def main() -> int:
     rest = phase_rest(torch)
     torch.cuda.empty_cache()
     tools = phase_tools(torch, teacher_params)
+    torch.cuda.empty_cache()
+    resize = phase_resize(torch)
 
     k5_mixed = k5["f32->bf16"]
     k6_main = k6["shapes"][K6_MAIN_SHAPE]
@@ -4004,6 +4159,20 @@ def main() -> int:
                          "of mode_07 at B = 8 and mode_12, Q1 and "
                          "cuDNN's conv 10 calls back to back each, its convs a call; q1_per_call: those convs x their "
                          "times, per model and dtype",
+            },
+            {
+                "name": "bilinear_resize", "route": "cuda", "source": "tha4_tpu_torch/csrc/resize.cu",
+                "replaces": "none (tha4_tpu/ops/resize.py:39, dense interpolation matrices on the MXU)",
+                "launches": main_path["launches"]["bilinear_resize_forward"],
+                "max_abs_err": resize["max_abs_err"], "ms": resize["frame_ms"], "plain_ms": resize["frame_plain_ms"],
+                "bound_ms": resize["frame_bound_ms"], "bound_by": "bytes", "library_ms": resize["frame_library_ms"],
+                "dense_ms": resize["frame_dense_ms"], "bound_share": resize["frame_bound_ms"] / resize["frame_ms"],
+                "max_bwd_err_bf16_steps": resize["max_bwd_err"], "cases": resize["cases"],
+                "timed": "the f32 frame's two level upsamples (NCHW, B = 1) added, the card's own time (CUDA graphs of "
+                         "20 calls); dense: the port's interpolation-matrix GEMMs before R1; library: F.interpolate "
+                         "(bilinear, align_corners=False); cases: each shape, with the body student's training levels "
+                         "(NHWC bf16, B = 8) forward and adjoint; max_abs_err: the kernel against its plain version "
+                         "over every case, contiguous and a sliced view (0 when bit for bit); launches: the main path's frames",
             },
             {
                 **{k: v for k, v in k6_entry.items() if k in KERNEL_KEYS}, "name": "fused_packed_conv3 (counterpart: affine_silu_conv3)",

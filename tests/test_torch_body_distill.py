@@ -286,14 +286,14 @@ def test_body_pipeline_takes_mode_12_from_mode_07_and_refuses_samples(inputs, tm
 
 
 def test_constants_first_made_under_inference_mode_still_train(rng):
-    """The cached identity grid and resize matrices outlive the block that
+    """The cached identity grid and resize tables outlive the block that
     first asks for them: a frame rendered under ``torch.inference_mode``
     before training must not leave inference tensors that the training
     step's backward would have to save."""
-    from tha4_tpu_torch.ops import resize, warp
+    from tha4_tpu_torch.ops import cuda_resize, warp
 
     warp._identity_grid.cache_clear()
-    resize._bilinear_matrix.cache_clear()
+    cuda_resize.taps.cache_clear()
     _, cfg = _student_cfgs(64)
     student = siren.SirenMorpher(cfg)
     image = torch.from_numpy(rng.uniform(-1, 1, (1, 64, 64, 4)).astype(np.float32))

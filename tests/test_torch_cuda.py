@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from tha4_tpu_torch.models import siren
-from tha4_tpu_torch.ops import cuda_siren, cuda_warp
+from tha4_tpu_torch.ops import cuda_resize, cuda_siren, cuda_warp
 from tha4_tpu_torch.ops.warp import identity_grid
 from test_torch_siren_fold import (
     K1_CASES, K1_F32_CASES, SUM_ORDER_SENSITIVE, chain_t_exact, chain_t_folded, k1_bf16_bar, k1_case, max_diff,
@@ -509,6 +509,124 @@ def test_warp_kernel_at_ragged_sizes(card, dtype, n, h, w, ho, wo):
         assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7
 
 
+# -- R1, the bilinear resize (csrc/resize.cu) -----------------------------------
+
+# (layout, dtype, input shape, output size): the frame's two level upsamples
+# (NCHW f32), the body student's training levels (NHWC, batch cut from 8 to
+# 2), the mode_07 teacher's 512 -> 256 and 256 -> 512 hops (4 and 2
+# channels), and an odd case both ways.
+R1_CASES = [
+    ("nchw", torch.float32, (1, 180, 128, 128), (256, 256)),
+    ("nchw", torch.float32, (1, 90, 256, 256), (512, 512)),
+    ("nhwc", torch.bfloat16, (2, 128, 128, 180), (256, 256)),
+    ("nhwc", torch.bfloat16, (2, 256, 256, 90), (512, 512)),
+    ("nhwc", torch.float32, (2, 128, 128, 180), (256, 256)),
+    ("nhwc", torch.float32, (2, 256, 256, 90), (512, 512)),
+    ("nhwc", torch.bfloat16, (2, 512, 512, 4), (256, 256)),
+    ("nhwc", torch.bfloat16, (2, 256, 256, 4), (512, 512)),
+    ("nhwc", torch.bfloat16, (2, 256, 256, 2), (512, 512)),
+    ("nhwc", torch.float32, (2, 512, 512, 4), (256, 256)),
+    ("nchw", torch.float32, (2, 3, 37, 53), (64, 29)),
+    ("nhwc", torch.bfloat16, (2, 37, 53, 3), (64, 29)),
+]
+
+
+def _r1_input(card, layout, dtype, shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0).to(card, dtype), layout == "nhwc"
+
+
+@pytest.mark.parametrize("layout,dtype,shape,size", R1_CASES)
+def test_resize_kernel_equals_plain(card, layout, dtype, shape, size):
+    """R1's forward equals its plain version on the card bit for bit (the
+    same f32 two-tap steps in the same order, one rounding to the dtype),
+    on a contiguous input and on a sliced view read in place; one launch a
+    call."""
+    x, channels_last = _r1_input(card, layout, dtype, shape, sum(shape))
+    before = cuda_resize.bilinear_resize_forward.launches
+    out = cuda_resize.resize(x, size, channels_last)
+    torch.cuda.synchronize()
+    assert cuda_resize.bilinear_resize_forward.launches == before + 1
+    ref = cuda_resize.resize_plain(x, size, channels_last)
+    assert out.dtype == dtype and out.shape == ref.shape and out.is_contiguous()
+    assert torch.equal(out, ref)
+    view = x[:, :, :, 1:] if channels_last else x[:, :, 1:, :]
+    out = cuda_resize.resize(view, size, channels_last)
+    assert torch.equal(out, cuda_resize.resize_plain(view, size, channels_last))
+
+
+@pytest.mark.parametrize("layout,dtype,shape,size", R1_CASES)
+def test_resize_adjoint_matches_plain_gradient(card, layout, dtype, shape, size):
+    """R1's adjoint through autograd against autograd of the plain version
+    on the card: within 1e-6 of the plain gradient's largest value in f32,
+    one bf16 step in bf16; two calls bit-identical (a gather, no atomics)."""
+    x, channels_last = _r1_input(card, layout, dtype, shape, sum(shape) + 1)
+    x.requires_grad_(True)
+    before = cuda_resize.bilinear_resize_backward.launches
+    out = cuda_resize.resize(x, size, channels_last)
+    g = (torch.rand(out.shape, generator=torch.Generator().manual_seed(7)) * 2.0 - 1.0).to(card, dtype)
+    out.backward(g)
+    assert cuda_resize.bilinear_resize_backward.launches == before + 1
+    x_ref = x.detach().clone().requires_grad_(True)
+    cuda_resize.resize_plain(x_ref, size, channels_last).backward(g)
+    torch.cuda.synchronize()
+    got, ref = x.grad.float(), x_ref.grad.float()
+    assert x.grad.dtype == dtype and got.shape == ref.shape
+    if dtype == torch.float32:
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    else:
+        step = torch.exp2(torch.floor(torch.log2(torch.maximum(got.abs(), ref.abs()).clamp_min(2.0**-126))) - 7)
+        assert bool(((got - ref).abs() <= step).all())
+    in_size = shape[1:3] if channels_last else shape[2:]
+    again = [cuda_resize.bilinear_resize_backward(g, in_size, channels_last) for _ in range(2)]
+    assert torch.equal(again[0], again[1]) and torch.equal(again[0], x.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resize_kernel_takes_a_steep_nchw_downsample(card, dtype):
+    """A W downsample too steep for the NCHW kernel's shared memory (2000 ->
+    4 columns) goes the NHWC way through a permuted view: one launch, equal
+    to the plain version bit for bit, and its adjoint within the bars of
+    ``test_resize_adjoint_matches_plain_gradient``."""
+    x, _ = _r1_input(card, "nchw", dtype, (2, 3, 5, 2000), 2021)
+    x.requires_grad_(True)
+    before = cuda_resize.bilinear_resize_forward.launches
+    out = cuda_resize.resize(x, (3, 4), False)
+    assert cuda_resize.bilinear_resize_forward.launches == before + 1
+    x_ref = x.detach().clone().requires_grad_(True)
+    ref = cuda_resize.resize_plain(x_ref, (3, 4), False)
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    g = (torch.rand(out.shape, generator=torch.Generator().manual_seed(8)) * 2.0 - 1.0).to(card, dtype)
+    out.backward(g)
+    ref.backward(g)
+    torch.cuda.synchronize()
+    got, want = x.grad.float(), x_ref.grad.float()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    else:
+        step = torch.exp2(torch.floor(torch.log2(torch.maximum(got.abs(), want.abs()).clamp_min(2.0**-126))) - 7)
+        assert bool(((got - want).abs() <= step).all())
+
+
+def test_a_frame_launches_the_resize_twice(card):
+    """One full-width f32 student frame: R1 upsamples level 0 to 1 and 1 to
+    2, two launches, and no adjoint."""
+    from tha4_tpu_torch.poser.modes import mode_14
+
+    gen = torch.Generator().manual_seed(21)
+    poser = mode_14.StudentPoser(siren.SirenFaceMorpher(generator=gen), siren.SirenMorpher(generator=gen),
+                                 compute_dtype=torch.float32, device=card)
+    image = (torch.rand((1, 512, 512, 4), generator=gen) * 2.0 - 1.0).to(card)
+    pose = torch.rand((1, 45), generator=gen).to(card)
+    before = (cuda_resize.bilinear_resize_forward.launches, cuda_resize.bilinear_resize_backward.launches)
+    with torch.no_grad():
+        for _ in range(3):
+            mode_14.compute_outputs(poser.face_cfg, poser.body_cfg, poser.face_chain, poser.body_chains, image, pose)
+    torch.cuda.synchronize()
+    after = (cuda_resize.bilinear_resize_forward.launches, cuda_resize.bilinear_resize_backward.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (6, 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_graph_captured_frames_equal_eager_frames(card, dtype):
     """The frame bench's method (``tools.bench``): full-width student frames
@@ -559,7 +677,7 @@ def test_graph_captured_frames_equal_eager_frames(card, dtype):
 def test_a_step_after_a_sample_render_equals_one_without(card, tmp_path, student):
     """The distiller's trainer renders its sample grid at 0, before the first
     step, and the render is the first to make the cached grids and resize
-    matrices: one step after it (full-width random teachers and students,
+    tables: one step after it (full-width random teachers and students,
     bf16, batch 2) equals the same step with sample outputs off, bit for
     bit, with cuDNN in its deterministic mode."""
     import dataclasses
@@ -568,7 +686,7 @@ def test_a_step_after_a_sample_render_equals_one_without(card, tmp_path, student
     from tha4_tpu_torch.distiller import sample_output
     from tha4_tpu_torch.distiller.config import DistillerConfig
     from tha4_tpu_torch.distiller.pipeline import DistillationJobs
-    from tha4_tpu_torch.ops import resize, warp
+    from tha4_tpu_torch.ops import cuda_resize, warp
 
     config = DistillerConfig.load(write_distiller_inputs(str(tmp_path / "inputs"), seed=5, batch_size=2, sample_cadence=10_000))
     params = random_teacher_07(torch.Generator().manual_seed(55))
@@ -578,7 +696,7 @@ def test_a_step_after_a_sample_render_equals_one_without(card, tmp_path, student
         states = []
         for render in (True, False):
             warp._identity_grid.cache_clear()
-            resize._bilinear_matrix.cache_clear()
+            cuda_resize.taps.cache_clear()
             prefix = str(tmp_path / f"render_{render}")
             os.makedirs(prefix)
             jobs = DistillationJobs(dataclasses.replace(config, prefix=prefix), teacher_params_07=params, device=card,

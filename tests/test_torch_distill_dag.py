@@ -34,7 +34,7 @@ from tha4_tpu_torch.distiller import sample_output
 from tha4_tpu_torch.distiller.config import DistillerConfig
 from tha4_tpu_torch.distiller.pipeline import DistillationJobs, run_config
 from tha4_tpu_torch.models import siren
-from tha4_tpu_torch.ops import resize, warp
+from tha4_tpu_torch.ops import cuda_resize, warp
 from tha4_tpu_torch.poser.modes import mode_12
 from tha4_tpu_torch.tasks.workspace import Workspace
 from tha4_tpu_torch.training import checkpoint as ckpt
@@ -164,11 +164,11 @@ def dag(tmp_path_factory):
     """The face task, then ``all``, from a fresh prefix, with both sample
     cadences at the config's default, 10 000: each student renders its grid
     at 0, before its first step, and the render is the first to make the
-    cached identity grids and resize matrices."""
+    cached identity grids and resize tables."""
     directory = str(tmp_path_factory.mktemp("dag"))
     config = DistillerConfig.load(write_distiller_inputs(directory, seed=12, batch_size=2, sample_cadence=10_000))
     warp._identity_grid.cache_clear()
-    resize._bilinear_matrix.cache_clear()
+    cuda_resize.taps.cache_clear()
     face_jobs = _run(config, "face")
     assert face_jobs._body_trainer is None and not face_jobs._body_teachers
     assert not os.path.exists(config.character_model_yaml_file_name())

@@ -16,7 +16,7 @@ names = [m.name for m in pkgutil.walk_packages(tha4_tpu_torch.__path__, "tha4_tp
 needed = {"ops.nn", "models.encoder_decoder", "models.eyebrow", "models.face_morpher", "poser.modes.mode_12",
           "training.losses", "training.schedules", "training.checkpoint", "training.trainer",
           "distiller.config", "distiller.pose_dataset", "distiller.recipes", "distiller.pipeline",
-          "ops.cuda_poly_sin", "ops.cuda_warp", "models.unet", "models.body_morpher", "models.upscaler",
+          "ops.cuda_poly_sin", "ops.cuda_warp", "ops.cuda_resize", "models.unet", "models.body_morpher", "models.upscaler",
           "poser.modes.mode_07", "charmodel.synthetic", "convert.export_torch",
           "ops.cuda_conv", "poser.general_poser", "apps.full_manual_poser",
           "mocap.ifacialmocap_constants", "mocap.ifacialmocap", "mocap.ifacialmocap_pose_converter",

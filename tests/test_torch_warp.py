@@ -132,7 +132,13 @@ def test_warp_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
         cuda_warp.grid_sample_fast(image.to("meta"), grid.to("meta"))
 
 
-@pytest.mark.parametrize("hw_in,hw_out", [((128, 128), (256, 256)), ((256, 256), (512, 512)), ((64, 48), (40, 80))])
+# Upsamples (the frame's and the student's levels), a mixed resize, the
+# teacher's downsample, odd sizes both ways, and one axis unchanged.
+RESIZE_CASES = [((128, 128), (256, 256)), ((256, 256), (512, 512)), ((64, 48), (40, 80)), ((512, 512), (256, 256)),
+                ((37, 53), (64, 29)), ((16, 16), (16, 24)), ((9, 7), (5, 7))]
+
+
+@pytest.mark.parametrize("hw_in,hw_out", RESIZE_CASES)
 def test_resize_matches_bilinear_matrices(hw_in, hw_out):
     rng = np.random.default_rng(16)
     x = rng.standard_normal((2, 3, *hw_in)).astype(np.float32)
@@ -146,6 +152,74 @@ def test_resize_matches_bilinear_matrices(hw_in, hw_out):
     nhwc = x.transpose(0, 2, 3, 1)
     ours_nhwc = resize.resize_bilinear(torch.from_numpy(nhwc), hw_out).numpy()
     np.testing.assert_allclose(ours_nhwc, np.asarray(jresize.resize_bilinear(jnp.asarray(nhwc), hw_out)), atol=1e-5)
+
+
+@pytest.mark.parametrize("hw_in,hw_out", RESIZE_CASES)
+def test_resize_plain_is_the_two_tap_formula(hw_in, hw_out):
+    """R1's plain version, both layouts, equals the two-tap formula in f32
+    bit for bit: per axis fl(fl(w0 * a) + fl(w1 * b)) with the taps and
+    weights of the JAX package's matrix rule, H first, then W.  The kernel
+    (csrc/resize.cu) is held to the plain version bit for bit on the card."""
+    x = np.random.default_rng(20).standard_normal((2, 3, *hw_in)).astype(np.float32)
+
+    def axis(x, n_in, n_out, ax):
+        if n_in == n_out:
+            return x
+        src = np.clip((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5, 0.0, n_in - 1.0)
+        i0 = np.floor(src).astype(np.int64)
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        t = src - i0
+        shape = (-1,) + (1,) * (x.ndim - 1 - ax)
+        w0, w1 = (1.0 - t).astype(np.float32).reshape(shape), t.astype(np.float32).reshape(shape)
+        return w0 * np.take(x, i0, axis=ax) + w1 * np.take(x, i1, axis=ax)
+
+    want = axis(axis(x, hw_in[0], hw_out[0], 2), hw_in[1], hw_out[1], 3)
+    np.testing.assert_array_equal(resize.resize_bilinear_nchw(torch.from_numpy(x), hw_out).numpy(), want)
+    nhwc = resize.resize_bilinear(torch.from_numpy(x.transpose(0, 2, 3, 1)), hw_out)
+    assert nhwc.is_contiguous()
+    np.testing.assert_array_equal(nhwc.numpy(), want.transpose(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("hw_in,hw_out", RESIZE_CASES)
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_resize_gradient_matches_jax_vjp(hw_in, hw_out, layout):
+    """The plain version's gradient (autograd on the CPU, the adjoint
+    kernel's reference) against the VJP of the JAX package's resize."""
+    import jax
+
+    rng = np.random.default_rng(21)
+    shape = (2, 3, *hw_in) if layout == "nchw" else (2, *hw_in, 3)
+    x = rng.standard_normal(shape).astype(np.float32)
+    ours_fn, jax_fn = ((resize.resize_bilinear_nchw, jresize.resize_bilinear_nchw) if layout == "nchw"
+                       else (resize.resize_bilinear, jresize.resize_bilinear))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = ours_fn(xt, hw_out)
+    g = rng.standard_normal(tuple(out.shape)).astype(np.float32)
+    out.backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda a: jax_fn(a, hw_out), jnp.asarray(x))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-5)
+
+
+def test_resize_reads_views_in_place_keeps_f64_and_refuses_other_devices():
+    """A permuted or sliced view resizes as its contiguous copy would; f64
+    stays f64 on the plain version; the CPU launches nothing; a device that
+    is neither the CPU nor CUDA raises."""
+    from tha4_tpu_torch.ops import cuda_resize
+
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal((2, 9, 10, 12)).astype(np.float32))
+    view = x[..., 3:8]
+    before = cuda_resize.bilinear_resize_forward.launches
+    torch.testing.assert_close(resize.resize_bilinear(view, (17, 6)), resize.resize_bilinear(view.contiguous(), (17, 6)),
+                               rtol=0, atol=0)
+    nchw = x.permute(0, 3, 1, 2)
+    torch.testing.assert_close(resize.resize_bilinear_nchw(nchw, (5, 20)),
+                               resize.resize_bilinear_nchw(nchw.contiguous(), (5, 20)), rtol=0, atol=0)
+    assert cuda_resize.bilinear_resize_forward.launches == before
+    wide = resize.resize_bilinear_nchw(nchw.double(), (5, 20))
+    assert wide.dtype == torch.float64
+    torch.testing.assert_close(wide.float(), resize.resize_bilinear_nchw(nchw, (5, 20)), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="unsupported device"):
+        resize.resize_bilinear(x.to("meta"), (4, 4))
 
 
 def test_resize_bf16_computes_in_f32_then_casts():

@@ -55,6 +55,14 @@ _SIGNATURES = {
     "tha4_grid_sample_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g, image, grid, dgrid, n, h, w, ho, wo, is_bf16, stream
     "tha4_grid_sample_grid_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, out, taps_h, taps_w, n, c, h, w, ho, wo, channels_last, strides
+    # (n, c, h, w), is_bf16, vec, vec_load, stream
+    "tha4_bilinear_resize_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # w, wo
+    "tha4_bilinear_resize_rows_fit": [_I, _I],
+    # g, dx, adj_h, adj_w, n, c, h, w, ho, wo, g's strides (n, c, h, w),
+    # is_bf16, vec, vec_load, stream (NHWC)
+    "tha4_bilinear_resize_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # a, out, n, dtypes, stream
     "tha4_poly_sin_forward": [_P, _P, _L, _I, _P],
     # a, g, da, n, dtypes, stream

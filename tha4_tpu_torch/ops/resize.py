@@ -1,64 +1,35 @@
 """Resize ops with torch ``interpolate`` semantics, no antialiasing
 (counterpart of ``tha4_tpu/ops/resize.py``).
 
-Bilinear resizing is two 1-D interpolation-matrix products in f32 (f64 for
-an f64 input; output pixel i samples ``(i + 0.5) * scale - 0.5``, clamped
-at the edges), then a cast back to the input dtype.  The products are plain ``torch.matmul``; in
-f32 they are full-f32 products because ``StudentPoser`` turns TF32 off.
+Bilinear resizing is R1 (``ops.cuda_resize``): each output pixel samples
+``(i + 0.5) * scale - 0.5`` per axis, clamped at the edges, from two taps
+per axis, H first and then W, in f32 (f64 for an f64 input), then a cast
+back to the input dtype.  A CUDA tensor launches the kernel, a CPU tensor
+runs its plain version; both read NCHW and NHWC in place and return a
+contiguous tensor in the same layout.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
-import numpy as np
 import torch
 
-from tha4_tpu_torch.ops import wide
-
-
-@functools.lru_cache(maxsize=64)
-def _bilinear_matrix_np(in_size: int, out_size: int) -> np.ndarray:
-    """(in_size, out_size) interpolation matrix, torch half-pixel rule."""
-    scale = in_size / out_size
-    i = np.arange(out_size, dtype=np.float64)
-    src = np.clip((i + 0.5) * scale - 0.5, 0.0, in_size - 1.0)
-    i0 = np.floor(src).astype(np.int64)
-    i1 = np.minimum(i0 + 1, in_size - 1)
-    t = src - i0
-    mat = np.zeros((in_size, out_size), dtype=np.float32)
-    mat[i0, np.arange(out_size)] += (1.0 - t).astype(np.float32)
-    mat[i1, np.arange(out_size)] += t.astype(np.float32)
-    return mat
-
-
-@functools.lru_cache(maxsize=64)
-def _bilinear_matrix(in_size: int, out_size: int, device: str) -> torch.Tensor:
-    # A normal tensor even when first asked for under inference mode (see
-    # ops.warp._identity_grid).
-    with torch.inference_mode(False):
-        return torch.from_numpy(_bilinear_matrix_np(in_size, out_size)).to(device)
+from tha4_tpu_torch.ops import cuda_resize
 
 
 def resize_bilinear_nchw(image: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Torch-rule bilinear resize of NCHW ``image`` to (H, W) = ``size``."""
-    n, c, h, w = image.shape
-    ho, wo = size
-    if (h, w) == (ho, wo):
+    if tuple(image.shape[2:]) == tuple(size):
         return image
-    device = str(image.device)
-    x = wide(image)
-    if h != ho:  # H first, then W, as the JAX package does
-        x = torch.matmul(_bilinear_matrix(h, ho, device).to(x.dtype).T, x)  # (n, c, ho, w)
-    if w != wo:
-        x = torch.matmul(x, _bilinear_matrix(w, wo, device).to(x.dtype))  # (n, c, ho, wo)
-    return x.to(image.dtype)
+    return cuda_resize.resize(image, size, channels_last=False)
 
 
 def resize_bilinear(image: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Torch-rule bilinear resize of NHWC ``image`` to (H, W) = ``size``."""
-    return resize_bilinear_nchw(image.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
+    if tuple(image.shape[1:3]) == tuple(size):
+        return image
+    return cuda_resize.resize(image, size, channels_last=True)
 
 
 def upsample_nearest_2x(image: torch.Tensor) -> torch.Tensor:
