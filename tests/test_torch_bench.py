@@ -1,7 +1,7 @@
 """The port's frame bench (``tha4_tpu_torch.tools.bench``) on the CPU: its
 pose sweep against the JAX bench's formulas, its frame loop on a narrow
 student, and its last line's keys against the JAX bench's.  The bench's
-``main`` needs a card and is run by ``chip_smoke.py``."""
+``main`` needs a card and is run by ``tests/test_torch_card_frame.py``."""
 
 import ast
 import os

@@ -50,33 +50,33 @@ DECISIONS = {
 # Root tool -> (port files that carry what it measures, or none; why no twin).
 # The probes time the TPU program's structure (XLA's fusions and cost
 # analysis, lax.scan chunks, VMEM tiling, the lane-packed flow); the port
-# measures its own kernels and steps with chip_smoke.py (every kernel against
-# its bound and a library call) and tools/profile_step.py.
+# measures its own kernels with kernel_times.py (every kernel against its
+# bound and a library call), its steps with tools/profile_step.py.
 _PROFILE = "tools/profile_step.py"
 TOOL_DECISIONS = {
     "warp_probe.py": (["csrc/warp.cu", "ops/cuda_warp.py"],
-                      "a Pallas variant of the forward warp: K2 computes its function (chip_smoke.py's kernels line)"),
+                      "a Pallas variant of the forward warp: K2 computes its function (kernel_times.py's K2 row)"),
     "chunk_bench.py": ([_PROFILE, "distiller/recipes.py"],
-                       "times XLA's compiled multi-step chunks; eager steps have none: profile_step --time and phase 16's "
-                       "lookahead timing"),
+                       "times XLA's compiled multi-step chunks; eager steps have none: profile_step --time times "
+                       "the teacher at 1 and 8 poses a call"),
     "teacher_interactive_probe.py": (["poser/general_poser.py"],
                                      "the eyebrow decomposer's cache; the teacher poser's prologue cache, counted in "
-                                     "chip_smoke.py phase 13"),
+                                     "tests/test_torch_card_teacher.py"),
     "perf_audit.py": ([_PROFILE], "roofline rows from XLA's cost analysis on the TPU"),
     "precision_sweep.py": (["tools/bench.py", "apps/evaluate.py"],
                            "selective-precision variants of the JAX student frame; the port's frame is K1's, held in "
-                           "f32 and bf16 by chip_smoke.py phases 3 and 5"),
+                           "f32 and bf16 by tests/test_torch_cuda.py and tests/test_torch_card_frame.py"),
     "scan_probe.py": ([_PROFILE], "the lax.scan chunk against straight-line XLA code"),
-    "upscaler_floor.py": ([_PROFILE], "the TPU upscaler's conv floor; the port times K6 at the U-Nets' shapes (phase 12)"),
+    "upscaler_floor.py": ([_PROFILE], "the TPU upscaler's conv floor; the port times K6 at a U-Net shape (kernel_times.py's K6 row)"),
     "flow_prefix_probe.py": ([_PROFILE], "prefixes of the TPU U-Net's packed flow, which the port does not have"),
     "unet_glue_probe.py": ([_PROFILE], "XLA's glue between the TPU U-Net's blocks"),
     "upblock_probe.py": ([_PROFILE], "the packed up-path ResBlock on the TPU"),
     "student_bwd_probe.py": ([_PROFILE], "the JAX student's fwd+bwd split by XLA fusions; K4 and K5 are timed on "
-                                         "their own (phases 6, 9)"),
+                                         "their own (kernel_times.py's K4 and K5 rows)"),
     "student_head_probe.py": ([_PROFILE], "the JAX student's head and warp by XLA fusions; K3 is timed on its own "
-                                          "(phase 8)"),
+                                          "(kernel_times.py's K3 row)"),
     "quant_probe.py": (["ops/cuda_int8_conv.py", _PROFILE],
-                       "XLA's int8 conv at the TPU's shapes; Q1 is timed at every signature (phase 15)"),
+                       "XLA's int8 conv at the TPU's shapes; Q1 is timed at the costliest (kernel_times.py's Q1 row)"),
 }
 
 

@@ -5,6 +5,9 @@ Every test here needs an NVIDIA GPU and nvcc; each skips itself where
 jax, which tests/conftest.py imports):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+Each kernel is held at the shapes of the paths that call it, at full
+width, and at ragged ones.  ``kernel_times.py`` times them.
 """
 
 import math
@@ -21,18 +24,9 @@ from test_torch_siren_fold import (
     K1_CASES, K1_F32_CASES, SUM_ORDER_SENSITIVE, chain_t_exact, chain_t_folded, k1_bf16_bar, k1_case, max_diff,
     random_chain,
 )
+from torch_card import SEED, card
 
 pytestmark = pytest.mark.cuda
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    from tha4_tpu_torch.utils import precision
-
-    precision.set_full_f32()  # the plain versions' matmuls and convolutions in full f32
-    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("dtype,cp,dims,head,hw", [
@@ -55,6 +49,32 @@ def test_sine_chain_kernel_matches_plain(card, dtype, cp, dims, head, hw):
         assert float(err.max()) <= 1e-4
     else:  # see tests/test_torch_siren.py: summation order moves a bf16 step now and then
         assert float(err.max()) <= k1_bf16_bar(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("level,n", [(level, 1) for level in ("face", 0, 1, 2)] + [("face", 8)] + [(level, 4) for level in (0, 1, 2)])
+def test_sine_chain_kernel_at_the_shipped_chains(card, dtype, level, n):
+    """K1 at the shipped students' chains (SIREN init, seeded): the frame's
+    four calls (N = 1), the face at its training batch and the body levels
+    at the body sample grid's batch.  f32 within 1e-4 (two valid f32 orders
+    through omega = 30 sine layers, tests/test_pallas_siren.py:54); bf16
+    within four bf16 steps of the output's scale (the same bf16 operands,
+    exact f32 products and f32 sums in another order)."""
+    gen = torch.Generator().manual_seed(SEED)
+    face, body = siren.SirenFaceMorpher(generator=gen), siren.SirenMorpher(generator=gen)
+    if level == "face":
+        chain, size, cp, pose_dim = face.pack(dtype, card), face.cfg.image_size, 0, face.cfg.pose_size
+    else:
+        chain, size, pose_dim = body.pack(dtype, card)[level], body.cfg.levels[level].image_size, body.cfg.pose_size
+        cp = 0 if level == 0 else body.cfg.levels[level].intermediate_channels
+    gen = torch.Generator().manual_seed(SEED + 1)
+    prev = (torch.rand((n, cp, size * size), generator=gen) * 2.0 - 1.0).to(card, dtype) if cp else None
+    pos, pose = siren.pos_t(size, dtype, card), torch.rand((n, pose_dim), generator=gen).to(card)
+    out = cuda_siren.sine_chain_t(prev, pos, pose, chain)
+    ref = cuda_siren.chain_t_plain(prev, pos, pose, chain)
+    assert out.shape == ref.shape and out.dtype == dtype
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= (1e-4 if dtype == torch.float32 else k1_bf16_bar(ref)), err
 
 
 def test_sine_chain_kernel_at_the_sum_order_witness(card):
@@ -230,15 +250,16 @@ def _warp_grid(rng, kind, n, h, w):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["border", "smooth", "far"])
-def test_warp_corners_kernel_and_grid_gradient_match_plain(card, dtype, kind):
+@pytest.mark.parametrize("n,h,w", [(2, 64, 128), (8, 512, 512)])  # and the body student's head warp
+def test_warp_corners_kernel_and_grid_gradient_match_plain(card, dtype, kind, n, h, w):
     """K3 on the card: its forward (K2's kernel, counted apart) equals K2
     bit for bit; the grid-backward kernel is within 2e-5 of its largest
     |dgrid| of its plain version and of the CPU's autograd gradient
     (tests/test_pallas_warp.py:44-60), gives exact zeros where the strict
-    mask is 0, and two calls are bit-identical; each launch counter moves
-    by one a call; a bf16 grid and a non-contiguous g raise."""
+    mask is 0, and two calls and the autograd path on the card are
+    bit-identical; each launch counter moves by one a call; a bf16 grid and
+    a non-contiguous g raise."""
     rng = np.random.default_rng(8)
-    n, h, w = 2, 64, 128
     image = torch.from_numpy(rng.uniform(-1, 1, (n, h, w, 4)).astype(np.float32)).to(card, dtype)
     grid = torch.from_numpy(_warp_grid(rng, kind, n, h, w)).to(card)
     g = torch.from_numpy(rng.standard_normal((n, h, w, 4)).astype(np.float32)).to(card, dtype)
@@ -264,6 +285,7 @@ def test_warp_corners_kernel_and_grid_gradient_match_plain(card, dtype, kind):
         gr = grid.detach().to(device).requires_grad_()
         (cuda_warp.grid_sample_train(image.to(device), gr).float() * g.to(device).float()).sum().backward()
         grads.append(gr.grad.cpu())
+    assert torch.equal(grads[0], first.cpu())
     assert float((grads[0] - grads[1]).abs().max()) <= 2e-5 * float(grads[1].abs().max())
     with pytest.raises(ValueError, match="grid dtype"):
         bwd(g, image, grid.to(torch.bfloat16))
@@ -282,14 +304,15 @@ def test_bare_warp_refuses_a_cuda_grad_grid(card):
 
 
 @pytest.mark.parametrize("a_dtype,out_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
-def test_poly_sin_kernels_match_plain(card, a_dtype, out_dtype):
+@pytest.mark.parametrize("shape", [(3, 1001), (8, 512, 512, 90)])  # and the body student's widest layer
+def test_poly_sin_kernels_match_plain(card, a_dtype, out_dtype, shape):
     """K5 forward and backward, bit-equal to the plain versions (the same
     f32 operations with no contraction), a length with a ragged tail."""
     from tha4_tpu_torch.ops import cuda_poly_sin
 
     rng = np.random.default_rng(9)
-    a = torch.from_numpy((rng.standard_normal((3, 1001)) * 40.0).astype(np.float32)).to(card, a_dtype)
-    g = torch.from_numpy(rng.standard_normal((3, 1001)).astype(np.float32)).to(card, out_dtype)
+    a = torch.from_numpy((rng.standard_normal(shape) * 40.0).astype(np.float32)).to(card, a_dtype)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, out_dtype)
     before = (cuda_poly_sin.poly_sin_forward.launches, cuda_poly_sin.poly_sin_backward.launches)
     out = cuda_poly_sin.poly_sin_forward(a, out_dtype)
     da = cuda_poly_sin.poly_sin_backward(a, g)
@@ -354,6 +377,9 @@ def _affine_conv_case(seed, n, cin, cout, h, w, skip, dtype, device):
     (1, 256, 256, 32, 32, "conv256"),   # Cout 256 in one block, a deep level's 1x1 skip
     (2, 96, 64, 70, 130, "conv32"),     # several 64-column tiles, ragged in both directions
     (1, 64, 300, 24, 40, "identity"),   # Cout past 256: two Cout blocks
+    # The five costliest of the teacher's U-Nets at B = 8.
+    (8, 32, 32, 512, 512, "identity"), (8, 96, 32, 512, 512, "none"), (8, 32, 32, 512, 512, "conv96"),
+    (8, 64, 64, 512, 512, "identity"), (8, 64, 64, 256, 256, "identity"),
 ])
 def test_affine_conv3_kernel_matches_plain(card, dtype, n, cin, cout, h, w, skip):
     """K6 against its plain version, max-abs error over max |plain|: 1e-4 in
@@ -423,6 +449,9 @@ def _fold_case(seed, n, c, h, w, groups, films, dtype, device, mean=0.0):
     (1, 512, 16, 16, 32, 2, 0.0),     # the deepest level
     (8, 32, 64, 64, 32, 2, 0.0),      # many blocks an image
     (1, 32, 40, 40, 8, 0, 1000.0),    # a mean 500x the spread: centred statistics
+    # norm1 of the costliest K6 shapes at B = 8
+    (8, 32, 512, 512, 32, 2, 0.0), (8, 96, 512, 512, 32, 2, 0.0), (8, 64, 512, 512, 32, 2, 0.0),
+    (8, 64, 256, 256, 32, 2, 0.0),
 ])
 def test_fold_kernel_matches_plain(card, dtype, n, c, h, w, groups, films, mean):
     """The fold's two kernels against its plain version on the same x:
@@ -491,7 +520,8 @@ def test_frozen_unet_reuses_one_weight_layout_per_conv(card, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w,ho,wo", [(1, 33, 47, 29, 45), (3, 16, 16, 7, 9), (2, 512, 512, 512, 511)])
+@pytest.mark.parametrize("n,h,w,ho,wo", [(1, 33, 47, 29, 45), (3, 16, 16, 7, 9), (2, 512, 512, 512, 511)]
+                         + [(8, s, s, s, s) for s in (128, 192, 256, 512)])  # the mode_07 teacher's warps at B = 8
 def test_warp_kernel_at_ragged_sizes(card, dtype, n, h, w, ho, wo):
     """K2 where the output's rows and columns are not multiples of a block,
     an odd output width, and a batch: bit-identical to the plain version in
@@ -512,12 +542,14 @@ def test_warp_kernel_at_ragged_sizes(card, dtype, n, h, w, ho, wo):
 # -- R1, the bilinear resize (csrc/resize.cu) -----------------------------------
 
 # (layout, dtype, input shape, output size): the frame's two level upsamples
-# (NCHW f32), the body student's training levels (NHWC, batch cut from 8 to
-# 2), the mode_07 teacher's 512 -> 256 and 256 -> 512 hops (4 and 2
-# channels), and an odd case both ways.
+# (NCHW f32), the body student's training levels (NHWC, at its batch of 8 in
+# bf16, and at 2), the mode_07 teacher's 512 -> 256 and 256 -> 512 hops (4
+# and 2 channels), and an odd case both ways.
 R1_CASES = [
     ("nchw", torch.float32, (1, 180, 128, 128), (256, 256)),
     ("nchw", torch.float32, (1, 90, 256, 256), (512, 512)),
+    ("nhwc", torch.bfloat16, (8, 128, 128, 180), (256, 256)),
+    ("nhwc", torch.bfloat16, (8, 256, 256, 90), (512, 512)),
     ("nhwc", torch.bfloat16, (2, 128, 128, 180), (256, 256)),
     ("nhwc", torch.bfloat16, (2, 256, 256, 90), (512, 512)),
     ("nhwc", torch.float32, (2, 128, 128, 180), (256, 256)),
@@ -741,7 +773,7 @@ def _q1_case(card, dtype, n, h, w, cin, cout, k, seed):
                                               (2, 19, 70, 4, 32, 3), (1, 24, 24, 32, 4, 3), (8, 16, 16, 512, 256, 3),
                                               (8, 72, 130, 96, 128, 3), (1, 512, 512, 64, 32, 1), (2, 80, 70, 64, 128, 1),
                                               (8, 16, 16, 256, 768, 1), (8, 32, 32, 512, 256, 1), (2, 17, 70, 59, 70, 3),
-                                              (1, 40, 130, 64, 32, 1)])
+                                              (1, 40, 130, 64, 32, 1), (8, 128, 128, 256, 256, 3)])
 def test_q1_equals_its_plain_version_bit_for_bit(card, dtype, n, h, w, cin, cout, k):
     """Exact integer sums on both sides, so the same bits: on ragged pixel
     counts and widths that are not a multiple of the 64-column tile (70,

@@ -413,7 +413,7 @@ def test_quant_ab_arms_and_delta(setup, tmp_path):
     student in bf16.  The teacher is ``random_teacher_07``: at these narrow
     widths the tool's ``mode_07.init`` teacher gives int8 labels equal to
     its bf16 ones, bit for bit, where at full width its arms differ
-    (chip_smoke.py phase 18)."""
+    (tests/test_torch_card_rest.py)."""
     tparams, image = _tool_inputs(setup, random_teacher_07)
     path = str(tmp_path / "quant.json")
     kw = dict(steps=2, batch=1, eval_batches=1, device=torch.device("cpu"), json_path=path, teacher_cfg=setup["tcfg"],

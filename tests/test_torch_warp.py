@@ -90,25 +90,29 @@ def test_plain_warp_matches_interpreted_pallas(interpret, size):
     np.testing.assert_allclose(ours, ref, atol=1e-4)
 
 
-@pytest.mark.parametrize("fast", ["auto", "strict", "never"])
-def test_apply_grid_change_matches_jax(fast):
+@pytest.mark.parametrize("how", ["apply_grid_change", "grid_sample_bilinear_border"])
+def test_apply_grid_change_matches_jax(how):
+    """The warp by a grid change, and the plain warp on identity plus that
+    change, against the JAX package's exact warp."""
     rng = np.random.default_rng(12)
     image = rng.standard_normal((2, 32, 48, 4)).astype(np.float32)
     grid_change = _smooth_flow(rng, 2, 32, 48, 0.3)
     ref = np.asarray(jwarp.apply_grid_change(jnp.asarray(grid_change), jnp.asarray(image), fast="never"))
-    ours = warp.apply_grid_change(torch.from_numpy(grid_change), torch.from_numpy(image), fast=fast).numpy()
-    np.testing.assert_allclose(ours, ref, atol=1e-5)
+    if how == "apply_grid_change":
+        ours = warp.apply_grid_change(torch.from_numpy(grid_change), torch.from_numpy(image))
+    else:
+        grid = warp.identity_grid(32, 48)[None] + torch.from_numpy(grid_change)
+        ours = cuda_warp.grid_sample_bilinear_border(torch.from_numpy(image), grid)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5)
 
 
-def test_apply_grid_change_broadcasts_one_flow_and_rejects_unknown_mode():
+def test_apply_grid_change_broadcasts_one_flow():
     rng = np.random.default_rng(13)
     image = torch.from_numpy(rng.standard_normal((3, 16, 16, 4)).astype(np.float32))
     grid_change = torch.from_numpy(_smooth_flow(rng, 1, 16, 16, 0.2))
     out = warp.apply_grid_change(grid_change, image)
     for i in range(3):
         torch.testing.assert_close(out[i : i + 1], warp.apply_grid_change(grid_change, image[i : i + 1]))
-    with pytest.raises(ValueError, match="fast must be one of"):
-        warp.apply_grid_change(grid_change, image, fast="window")
 
 
 def test_color_and_rgb_change_match_jax():

@@ -129,14 +129,14 @@ def test_border_clamp_zeroes_the_gradient():
 
 def test_image_cotangent_is_zero():
     """The contract of pallas_warp.py:24-31: the fast warp's image cotangent
-    is exactly zero, while the plain warp (``fast='never'``) differentiates
-    the image."""
+    is exactly zero, while the plain warp (``grid_sample_bilinear_border``)
+    differentiates the image."""
     size = 32
     image, grid = _image(5, 1, size), _smooth_grid(5, 1, size)
     _, _, dimage = _port_grad(image, grid, image_requires_grad=True)
     assert dimage is not None and dimage.shape == image.shape and not dimage.any()
     im = torch.from_numpy(image).requires_grad_()
-    (warp.apply_grid_change(torch.zeros(1, size, size, 2), im, fast="never") ** 2).sum().backward()
+    (cuda_warp.grid_sample_bilinear_border(im, warp.identity_grid(size, size)[None]) ** 2).sum().backward()
     assert im.grad.abs().max() > 0
 
 

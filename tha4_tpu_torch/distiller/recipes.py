@@ -71,10 +71,10 @@ EXAMPLES_PER_CHECKPOINT = 100_000
 # The per-rank teacher batch that lookahead fills up to: the recipes' batch,
 # at which one card runs the shipped recipe with K = 1
 # (``tha4_tpu/distiller/recipes.py:77-89``, where the value was chosen for
-# the TPU).  On an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase
-# 16) a bf16 teacher call of 8 poses labels a pose in 0.48-0.52 (body) and
-# 0.61-0.63 (face) of the time a call of 4 takes; whether more than 8 would
-# pay again there is not measured.
+# the TPU).  On an NVIDIA H100 80GB HBM3 at 700 W a bf16 teacher call of 8
+# poses labelled a pose in 0.48-0.52 (body) and 0.61-0.63 (face) of the time
+# a call of 4 took; whether more than 8 would pay again there is not
+# measured (``tools/profile_step.py --time`` times the teacher at 1 and 8).
 TEACHER_SATURATION_BATCH = 8
 
 

@@ -6,7 +6,7 @@ CUDA tensors and runs ``grid_sample_bilinear_border``, the plain PyTorch
 version, for CPU tensors.  Both compute torch ``grid_sample(mode='bilinear',
 padding_mode='border', align_corners=False)`` on NHWC images exactly: unlike
 the TPU kernel there is no displacement window and no bf16 lerp weight, so
-``'auto'`` and ``'strict'`` are the same thing in ``ops.warp``.  K2 has no
+``ops.warp`` needs no choice of warp mode.  K2 has no
 autograd, so it refuses a grid or image that requires a gradient while grad
 mode is on: a bare K2 call must never drop a gradient silently.
 

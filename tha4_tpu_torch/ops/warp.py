@@ -14,9 +14,6 @@ import numpy as np
 import torch
 
 from tha4_tpu_torch.ops import cuda_warp, wide
-from tha4_tpu_torch.ops.cuda_warp import grid_sample_bilinear_border
-
-WARP_MODES = ("auto", "strict", "never")
 
 
 @functools.lru_cache(maxsize=32)
@@ -44,22 +41,18 @@ def identity_grid(h: int, w: int, device="cpu") -> torch.Tensor:
     return _identity_grid(h, w, str(torch.device(device)))
 
 
-def apply_grid_change(grid_change: torch.Tensor, image: torch.Tensor, fast: str = "auto") -> torch.Tensor:
+def apply_grid_change(grid_change: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     """Warp NHWC ``image`` by ``grid_change`` (N, H, W, 2), x first.
 
-    The grid is identity + change, built in f32.  ``fast``: ``'auto'`` and
-    ``'strict'`` run K2 (the kernel on CUDA tensors, its plain version on CPU
-    tensors), or K3 where the grid needs a gradient (gradient to the grid
-    only, the image a constant, as the JAX package's fast warp); both are
-    exact, since the port's warp has no TPU window budget.  ``'never'`` runs
-    the plain version explicitly, differentiable in image and grid."""
-    if fast not in WARP_MODES:
-        raise ValueError(f"fast must be one of {WARP_MODES}, got {fast!r}")
+    The grid is identity + change, built in f32.  K2 runs the warp (the
+    kernel on CUDA tensors, its plain version on CPU tensors), or K3 where
+    the grid needs a gradient (gradient to the grid only, the image a
+    constant, as the JAX package's fast warp); both are exact, since the
+    port's warp has no TPU window budget.  The plain warp, differentiable
+    in image and grid, is ``cuda_warp.grid_sample_bilinear_border``."""
     n, h, w, _ = image.shape
     grid = identity_grid(h, w, image.device)[None] + wide(grid_change)
     grid = grid.expand(n, h, w, 2).contiguous()
-    if fast == "never":
-        return grid_sample_bilinear_border(image, grid)
     if torch.is_grad_enabled() and (grid.requires_grad or image.requires_grad):
         return cuda_warp.grid_sample_train(image, grid)
     return cuda_warp.grid_sample_fast(image, grid)
