@@ -20,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_card import BATCH, K6_PER_TEACHER_CALL, SEED, kernel_counters, teacher_params, workdir
+from torch_card import (
+    BATCH, K6_PER_TEACHER_CALL, SEED, dispatched, graph_calls, kernel_counters, reset, teacher_calls, teacher_params, workdir,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -180,11 +182,11 @@ def _rank_main(config_path: str, workdir: str, teacher_params) -> dict:
     torch.backends.cudnn.deterministic = True
     out = {"rank": mesh.rank(), "world": mesh.world_size(), "backend": torch.distributed.get_backend()}
     counters = kernel_counters()
-    for c in counters:
-        c.launches = 0
+    reset(counters)
     for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         out[tag] = _train(_jobs(config_path, os.path.join(workdir, f"ddp_{tag}_ranks"), 2, teacher_params, dtype))
     out["launches"] = {c.__name__: c.launches for c in counters}
+    out["teacher_calls"] = teacher_calls()
 
     total = STEPS * BATCH
     writes, exports, stopped = [], [], []
@@ -346,13 +348,18 @@ def test_two_gloo_ranks_agree_and_match_one_process(ranks, one_process, tag, kin
 
 
 def test_each_rank_launches_its_steps_and_its_teacher_calls(ranks):
+    """A teacher call labels a group of K = 2 steps.  Each dtype's mode_07
+    calls are one signature's: its warm-up and its capture, both of which
+    launch through the wrappers."""
+    body_calls = graph_calls(STEPS // 2, STEPS // 2)  # the bf16 and the f32 teacher
     expected = dict.fromkeys((c.__name__ for c in kernel_counters()), 0)
     for kind in ("face", "body"):
         for name, n in STUDENT_LAUNCHES[kind].items():
             expected[name] += 2 * STEPS * n  # two dtypes
         for name, n in TEACHER_LAUNCHES[kind].items():
-            expected[name] += 2 * (STEPS // 2) * n  # a teacher call labels a group of K = 2 steps
+            expected[name] += (2 * (STEPS // 2) if kind == "face" else dispatched(body_calls)) * n
     assert [r["launches"] for r in ranks] == [expected, expected]
+    assert [r["teacher_calls"] for r in ranks] == [body_calls, body_calls]
 
 
 def test_nccl_world_1_steps_equal_the_plain_steps(config_path, workdir, teacher_params):

@@ -22,7 +22,8 @@ import pytest
 import torch
 
 from torch_card import (
-    BATCH, BF16_MIN_PSNR, K6_PER_TEACHER_CALL, SEED, kernel_counters, launches, psnr, reset, teacher_params, workdir,
+    BATCH, BF16_MIN_PSNR, SEED, TEACHER_CALL, dispatched, graph_calls, kernel_counters, launches, psnr, reset,
+    teacher_calls, teacher_params, workdir,
 )
 
 pytestmark = pytest.mark.cuda
@@ -44,13 +45,16 @@ def _expect(*terms) -> dict:
 
 
 FACE_STEP = {"sine_chain_t": 1, "sine_chain_t_bwd": 1, "grid_sample_fast": 2}
-BODY_STEP = {"grid_sample_fast": 5, "grid_sample_train_forward": 1, "grid_sample_grid_backward": 1, "poly_sin_forward": 9,
-             "poly_sin_backward": 9, "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL, "fold_groupnorm_film": K6_PER_TEACHER_CALL}
+# The body's step and render without the teacher's call, which launches
+# TEACHER_CALL where it runs its body (not where it replays its graph).
+BODY_STEP = {"grid_sample_train_forward": 1, "grid_sample_grid_backward": 1, "poly_sin_forward": 9, "poly_sin_backward": 9}
 FACE_RENDER = {"sine_chain_t": 1, "grid_sample_fast": 2}  # the student's f32 chain and mode_12 at B = 8
-BODY_RENDER = {"sine_chain_t": 3, "grid_sample_fast": 5 + 1, "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL,
-               "fold_groupnorm_film": K6_PER_TEACHER_CALL}  # mode_07 at B = 4 and the student's three levels and warp
+BODY_RENDER = {"sine_chain_t": 3, "grid_sample_fast": 1}  # the student's three levels and warp, beside mode_07 at B = 4
 EXPECTED = {"face": ((FACE_STEP, DAG_STEPS), (FACE_RENDER, 1)), "all": ((BODY_STEP, DAG_STEPS), (BODY_RENDER, 1)),
             "rerun": (), "resume_snapshot": (), "resume_checkpoint_1": ((BODY_STEP, DAG_STEPS // 2),)}
+# mode_07's calls a signature in each run: the render's at B = 4, the steps'.
+TEACHER_SIGNATURES = {"face": (), "all": (1, DAG_STEPS), "rerun": (), "resume_snapshot": (),
+                      "resume_checkpoint_1": (DAG_STEPS // 2,)}
 
 
 def _file_state(root: str) -> dict:
@@ -91,7 +95,7 @@ def dag(workdir, teacher_params):
     def drive(target: str) -> dict:
         reset(counters)
         pipeline.run_config(config, target=target, **kwargs)
-        return launches(counters)
+        return {**launches(counters), "teacher_calls": teacher_calls()}
 
     pngs = {kind: sample_output.sample_output_file_name(getattr(config, f"{kind}_morpher_prefix")(), 0)
             for kind in ("face", "body")}
@@ -123,7 +127,8 @@ def dag(workdir, teacher_params):
 
 @pytest.mark.parametrize("run", RUNS)
 def test_dag_run_launches(dag, run):
-    assert dag["runs"][run] == _expect(*EXPECTED[run])
+    calls = graph_calls(*TEACHER_SIGNATURES[run])
+    assert dag["runs"][run] == {**_expect(*EXPECTED[run], (TEACHER_CALL, dispatched(calls))), "teacher_calls": calls}
 
 
 def test_face_target_runs_no_body_or_character_model_task(dag):

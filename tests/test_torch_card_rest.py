@@ -21,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_card import BATCH, K6_PER_TEACHER_CALL, SEED, kernel_counters, need_card, puppeteer_run, teacher_params, workdir
+from torch_card import (
+    BATCH, K6_PER_TEACHER_CALL, SEED, dispatched, graph_calls, kernel_counters, need_card, puppeteer_run, reset,
+    teacher_calls, teacher_params, workdir,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -235,29 +238,28 @@ def test_puppeteer_drains_udp_on_the_native_thread(model_yaml):
 
 def _counted(fn, *args) -> tuple:
     """fn(*args) in cuDNN's deterministic mode, with every launch counter
-    set to 0 just before it: (its result, {counter: launches})."""
+    and mode_07's call counts set to 0 just before it: (its result,
+    {counter: launches}, mode_07's (eager calls, captures, replays))."""
     counters = kernel_counters()
-    for c in counters:
-        c.launches = 0
+    reset(counters)
     torch.backends.cudnn.deterministic = True
     try:
         out = fn(*args)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = False
-    return out, {c.__name__: c.launches for c in counters}
+    return out, {c.__name__: c.launches for c in counters}, teacher_calls()
 
 
-def _step_launches(steps: int, evals: int, teacher_calls: int = None) -> dict:
-    """The launches of ``steps`` body steps (one teacher call each, or
-    ``teacher_calls``) and ``evals`` evaluation batches (an f32 teacher call
-    and a student forward under no_grad: K2, not K3)."""
-    calls = steps if teacher_calls is None else teacher_calls
-    return {"grid_sample_fast": 5 * calls + 6 * evals, "grid_sample_train_forward": steps, "grid_sample_grid_backward": steps,
+def _step_launches(steps: int, evals: int, teacher: int) -> dict:
+    """The launches of ``steps`` body steps and ``evals`` evaluation batches
+    (a student forward under no_grad: K2, not K3), each with a teacher call
+    (an f32 one for the evaluation), of which ``teacher`` ran their body
+    (``dispatched``): those that did not replay a graph."""
+    return {"grid_sample_fast": 5 * teacher + evals, "grid_sample_train_forward": steps, "grid_sample_grid_backward": steps,
             "poly_sin_forward": 9 * (steps + evals), "poly_sin_backward": 9 * steps,
-            "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * (calls + evals),
-            "fold_groupnorm_film": K6_PER_TEACHER_CALL * (calls + evals), "sine_chain_t": 0, "sine_chain_t_bwd": 0,
-            "int8_conv": 0}
+            "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * teacher, "fold_groupnorm_film": K6_PER_TEACHER_CALL * teacher,
+            "sine_chain_t": 0, "sine_chain_t_bwd": 0, "int8_conv": 0}
 
 
 def test_teacher_dtype_omitted_or_bf16_is_the_recipes_step(teacher_params):
@@ -306,22 +308,28 @@ def test_teacher_dtype_omitted_or_bf16_is_the_recipes_step(teacher_params):
 @pytest.fixture(scope="module")
 def dtype_ab_arms(workdir):
     """``python -m tha4_tpu_torch.tools.dtype_ab``, one call an arm, merged
-    into one JSON: (the last record, each arm's launches)."""
+    into one JSON: (the last record, each arm's launches, each arm's
+    mode_07 calls)."""
     from tha4_tpu_torch.tools import dtype_ab
 
     need_card()
     argv = ["--examples", str(AB_STEPS * BATCH), "--batch", str(BATCH), "--eval-poses", str(EVAL_POSES),
             "--json", os.path.join(workdir, "dtype_ab.json")]
-    launches = {}
+    launches, calls = {}, {}
     for arm in dtype_ab.ARMS:
-        record, launches[arm] = _counted(dtype_ab.main, argv + ["--arms", arm])
-    return record, launches
+        record, launches[arm], calls[arm] = _counted(dtype_ab.main, argv + ["--arms", arm])
+    return record, launches, calls
 
 
 @pytest.mark.parametrize("arm", ["bf16", "f32", "bf16t+f32s", "mixed"])
 def test_dtype_ab_arm_launches(dtype_ab_arms, arm):
-    """K2, K3's pair, K5's pair, K6 and its fold; K1, K4 and Q1 never."""
-    assert dtype_ab_arms[1][arm] == _step_launches(AB_STEPS, EVAL_POSES // BATCH)
+    """K2, K3's pair, K5's pair, K6 and its fold; K1, K4 and Q1 never.  The
+    f32 arm's teacher labels and evaluates in one signature; the others
+    label with the bf16 teacher, a signature of its own."""
+    evals = EVAL_POSES // BATCH
+    calls = graph_calls(AB_STEPS + evals) if arm == "f32" else graph_calls(AB_STEPS, evals)
+    assert dtype_ab_arms[2][arm] == calls
+    assert dtype_ab_arms[1][arm] == _step_launches(AB_STEPS, evals, dispatched(calls))
 
 
 def test_dtype_ab_arms_see_one_pose_stream_and_give_finite_numbers(dtype_ab_arms):
@@ -344,17 +352,21 @@ def test_quant_ab_arms(workdir):
     evals = EVAL_POSES // BATCH
     argv = ["--steps", str(QUANT_STEPS), "--batch", str(BATCH), "--eval-batches", str(evals),
             "--json", os.path.join(workdir, "quant_ab.json")]
-    launches = {}
+    launches, calls = {}, {}
     for arm in quant_ab.ARMS:
-        record, launches[arm] = _counted(quant_ab.main, argv + ["--arms", arm])
+        record, launches[arm], calls[arm] = _counted(quant_ab.main, argv + ["--arms", arm])
     q1 = launches["int8"]["int8_conv"]
     per_step = q1 // QUANT_STEPS
+    # The f32 evaluation replays its graph.  The calibration's bf16 call and
+    # every int8 call run eagerly (their convolutions read the int8 scope in
+    # Python) and leave K6 for the unfused order.
+    ev = graph_calls(evals)
+    assert calls == {"bf16": graph_calls(QUANT_STEPS, evals), "int8": (QUANT_STEPS + 1 + ev[0], ev[1], ev[2])}
     assert launches == {
-        "bf16": _step_launches(QUANT_STEPS, evals),
-        # the calibration's bf16 call and every int8 call leave K6 for the unfused order
-        "int8": {**_step_launches(QUANT_STEPS, evals, teacher_calls=QUANT_STEPS + 1),
-                 "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * evals, "fold_groupnorm_film": K6_PER_TEACHER_CALL * evals,
-                 "int8_conv": q1},
+        "bf16": _step_launches(QUANT_STEPS, evals, dispatched(calls["bf16"])),
+        "int8": {**_step_launches(QUANT_STEPS, evals, dispatched(calls["int8"])),
+                 "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * dispatched(ev),
+                 "fold_groupnorm_film": K6_PER_TEACHER_CALL * dispatched(ev), "int8_conv": q1},
     }
     assert per_step and q1 == per_step * QUANT_STEPS
     results = record["results"]
@@ -391,14 +403,17 @@ def body_run(workdir):
 
     Trainer.train = logged
     try:
-        _, launches = _counted(lambda: pipeline.run_config(config, target="body", **kwargs))
+        _, launches, calls = _counted(lambda: pipeline.run_config(config, target="body", **kwargs))
     finally:
         Trainer.train = train
-    return {"config": config, "kwargs": kwargs, "launches": launches, "trained": trained, "total": total}
+    return {"config": config, "kwargs": kwargs, "launches": launches, "teacher_calls": calls, "trained": trained,
+            "total": total}
 
 
 def test_body_run_launches(body_run):
-    assert body_run["launches"] == _step_launches(RUN_STEPS, 0)
+    """Both checkpoints' trainers label with one teacher: one signature."""
+    assert body_run["teacher_calls"] == graph_calls(RUN_STEPS)
+    assert body_run["launches"] == _step_launches(RUN_STEPS, 0, dispatched(graph_calls(RUN_STEPS)))
 
 
 def test_run_report_reads_the_body_run(body_run):
@@ -435,10 +450,11 @@ def test_eval_body_checkpoint_matches_body_eval_and_exports_the_checkpoint(body_
 
     config = body_run["config"]
     export = os.path.join(workdir, "tools_export")
-    result, launches = _counted(eval_body_checkpoint.main, [
+    result, launches, calls = _counted(eval_body_checkpoint.main, [
         config.prefix, "--export", export, "--eval-poses", str(EVAL_POSES), "--batch", str(BATCH)])
     assert (result["checkpoint"], result["examples"]) == (2, body_run["total"])
-    assert launches == _step_launches(0, EVAL_POSES // BATCH)
+    assert calls == graph_calls(EVAL_POSES // BATCH)
+    assert launches == _step_launches(0, EVAL_POSES // BATCH, dispatched(calls))
     npz = ckpt._load_npz(os.path.join(ckpt.checkpoint_dir(config.body_morpher_prefix(), 2), "module_module.npz"))
     exported = siren.SirenMorpher()
     exported.load_state_dict(load_torch_state_dict(os.path.join(export, "body_morpher.pt")))

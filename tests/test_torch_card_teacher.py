@@ -11,6 +11,7 @@ Then the teacher poser from the five state dicts as ``.pt`` files: the
 at B = 1 and 8).
 """
 
+import collections
 import math
 import os
 import subprocess
@@ -19,7 +20,9 @@ import sys
 import pytest
 import torch
 
-from torch_card import BATCH, K6_PER_TEACHER_CALL, ROOT, SEED, psnr, reset, teacher_files, teacher_params, workdir
+from torch_card import (
+    BATCH, K6_PER_TEACHER_CALL, ROOT, SEED, graph_calls, psnr, reset, teacher_calls, teacher_files, teacher_params, workdir,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +114,9 @@ def calls(teacher_params, image):
             torch.cuda.synchronize()
             run = {"launches": tuple(c.launches for c in counters), "shapes": [(tuple(o.shape[:3]), o.dtype) for o in outs],
                    "finite": all(bool(torch.isfinite(o.float()).all()) for o in outs)}
+            # The signature's second call captures its graph: the body runs
+            # once more, through the K6 wrapper that records the sizes.
+            before = [c.launches for c in counters]
             k6_recorded.launches = 0  # the wrapper counts on the function its module name holds
             cuda_conv.fused_affine_conv3_nchw = k6_recorded
             try:
@@ -118,6 +124,13 @@ def calls(teacher_params, image):
                     mode_07.compute_outputs(teacher, images, poses.to(dtype))
             finally:
                 cuda_conv.fused_affine_conv3_nchw = k6
+            run["capture_launches"] = (counters[0].launches - before[0], k6_recorded.launches, counters[2].launches - before[2])
+            before = [c.launches for c in counters]
+            with torch.no_grad():
+                mode_07.compute_outputs(teacher, images, poses.to(dtype))  # the third replays it
+            torch.cuda.synchronize()
+            run["replay_launches"] = tuple(c.launches - b for c, b in zip(counters, before))
+            run["calls"] = teacher_calls()
             out["runs"][(tag, n)] = run
             if n == 1:
                 out["b1"][tag] = (poses, [o.cpu() for o in outs])
@@ -126,7 +139,12 @@ def calls(teacher_params, image):
 
 @pytest.mark.parametrize("tag,n", CALLS)
 def test_mode_07_call_launches_5_k2_102_k6_and_102_folds(calls, tag, n):
-    assert calls["runs"][(tag, n)]["launches"] == (5, K6_PER_TEACHER_CALL, K6_PER_TEACHER_CALL)
+    """Each eager or captured call; the replay launches through none of the
+    wrappers.  Calls: one eager, one capture, one replay."""
+    run = calls["runs"][(tag, n)]
+    per_call = (5, K6_PER_TEACHER_CALL, K6_PER_TEACHER_CALL)
+    assert (run["launches"], run["capture_launches"], run["replay_launches"]) == (per_call, per_call, (0, 0, 0))
+    assert run["calls"] == graph_calls(3)
 
 
 @pytest.mark.parametrize("tag,n", CALLS)
@@ -302,12 +320,14 @@ def _poser(teacher_files, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_mode_07_poser_poses_an_image_four_times(teacher_files, poser_image, dtype):
     """33 finite f32 outputs a pose on the card; 102 K6, 5 K2 and 102 fold
-    launches a call; the eyebrow decomposer run once (the prologue cache)."""
+    launches a call that is not a replay; the eyebrow decomposer run once
+    (the prologue cache)."""
     from tha4_tpu_torch.ops import cuda_conv, cuda_warp
     from tha4_tpu_torch.tools import bench
 
     poser = _poser(teacher_files, dtype)
     counters = (cuda_conv.fused_affine_conv3_nchw, cuda_warp.grid_sample_fast, cuda_conv.fold_groupnorm_film)
+    reset(counters)
     per_call = []
     for pose in bench.pose_sweep(poser.pose_parameters, POSES):
         before = [c.launches for c in counters]
@@ -315,7 +335,10 @@ def test_mode_07_poser_poses_an_image_four_times(teacher_files, poser_image, dty
         per_call.append(tuple(c.launches - b for c, b in zip(counters, before)))
         assert [tuple(t.shape[:3]) for t in outs] == [(1, s, s) for s in SIZES]
         assert all(t.dtype == torch.float32 and t.device.type == "cuda" and bool(torch.isfinite(t).all()) for t in outs)
-    assert per_call == [(K6_PER_TEACHER_CALL, 5, K6_PER_TEACHER_CALL)] * POSES
+    # The first call warms its signature up, the second captures it, the
+    # rest replay it.
+    assert per_call == [(K6_PER_TEACHER_CALL, 5, K6_PER_TEACHER_CALL)] * 2 + [(0, 0, 0)] * (POSES - 2)
+    assert teacher_calls() == graph_calls(POSES)
     assert poser.prologue_cache_misses == 1
 
 
@@ -360,3 +383,146 @@ def test_mode_12_poser_gives_22_finite_outputs(teacher_files, poser_image):
     assert (cuda_conv.fused_affine_conv3_nchw.launches, cuda_warp.grid_sample_fast.launches) == (0, 2)
     assert not face.prologue_cache_misses
     assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in outs)
+
+
+# -- the teacher's call as a CUDA graph ------------------------------------------
+
+GRAPH_CALLS = 5  # a signature's calls: one eager, one capture, three replays
+GRAPH_NEW_IMAGE = 3  # the call from which on the character differs
+GRAPH_CASES = [("bf16", BATCH, False), ("f32", 1, True)]  # the training step's call; the poser's, decomposer cached
+
+
+@pytest.fixture(scope="module")
+def graphed(teacher_params, image):
+    """``GRAPH_CALLS`` calls of one signature each, in cuDNN's deterministic
+    mode, through a wrapper on ``mode_07.compute_outputs`` as the
+    benchmark's tap wraps it (it keeps what each call returned): a new
+    pose every call, a new character from ``GRAPH_NEW_IMAGE`` on (with its
+    own decomposer outputs where they are given).  Beside each, the body
+    run eagerly on the same inputs."""
+    from tha4_tpu_torch.distiller.pose_dataset import sample_poses
+    from tha4_tpu_torch.poser.modes import mode_07
+
+    out = {}
+    compute = mode_07.compute_outputs
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag, n, given in GRAPH_CASES:
+            dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+            teacher = mode_07.Teacher.from_params(teacher_params).freeze(dtype, "cuda")
+            poses = sample_poses(torch.Generator().manual_seed(SEED + 40 + n), n * GRAPH_CALLS).cuda().to(dtype)
+            characters = [image.to(dtype), image.flip(2).to(dtype)]
+            seen, got, eager = [], [], []
+
+            def tapped(*args, **kwargs):
+                result = compute(*args, **kwargs)
+                seen.append(result)
+                return result
+
+            mode_07.counts.reset()
+            mode_07.compute_outputs = tapped
+            try:
+                with torch.no_grad():
+                    for i in range(GRAPH_CALLS):
+                        character = characters[i >= GRAPH_NEW_IMAGE].expand(n, -1, -1, -1)
+                        dec = mode_07.compute_decomposer_outputs(teacher, character) if given else None
+                        pose = poses[i * n : (i + 1) * n].clone()  # a new tensor, as the trainer feeds its poses
+                        got.append(mode_07.compute_outputs(teacher, character, pose, dec))
+                        eager.append(mode_07._compute_outputs(teacher, character, pose, dec))
+            finally:
+                mode_07.compute_outputs = compute
+            torch.cuda.synchronize()
+            out[tag] = {"teacher": teacher, "got": got, "eager": eager, "seen": seen,
+                        "calls": teacher_calls()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in GRAPH_CASES])
+def test_replayed_outputs_equal_the_eager_body_bit_for_bit(graphed, tag):
+    """Every call, the replays too, against the body on the same inputs:
+    a new pose and a new character reach the graph."""
+    run = graphed[tag]
+    for i, (got, eager) in enumerate(zip(run["got"], run["eager"])):
+        assert len(got) == len(eager) == 33
+        assert all(torch.equal(a, b) for a, b in zip(got, eager)), f"call {i}"
+    assert not torch.equal(run["got"][GRAPH_NEW_IMAGE - 1][0], run["got"][GRAPH_NEW_IMAGE][0])
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in GRAPH_CASES])
+def test_each_call_owns_its_outputs(graphed, tag):
+    """No two calls' outputs share memory, and a later replay leaves an
+    earlier call's outputs as they were (the comparison above ran after
+    every call)."""
+    ptrs = [o.data_ptr() for outs in graphed[tag]["got"] for o in outs]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in GRAPH_CASES])
+def test_calls_of_one_signature_capture_once_and_replay_the_rest(graphed, tag):
+    assert graphed[tag]["calls"] == graph_calls(GRAPH_CALLS)
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in GRAPH_CASES])
+def test_a_wrapper_on_compute_outputs_sees_every_call(graphed, tag):
+    run = graphed[tag]
+    assert len(run["seen"]) == GRAPH_CALLS and all(s is g for s, g in zip(run["seen"], run["got"]))
+
+
+def _profiled_kernels(fn) -> collections.Counter:
+    """The card's kernels that ``fn`` ran, by name, as ``torch.profiler``
+    records them: K6's and its fold's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = (e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA)
+    return collections.Counter(n for n in names if "affine_silu_conv3" in n or "group_norm_" in n)
+
+
+def test_a_profiler_started_after_the_capture_sees_the_replays_kernels(graphed, image):
+    """The benchmark's traced window starts after set-up has captured the
+    graph: a replay there shows the same K6 and fold kernels as the eager
+    body."""
+    from tha4_tpu_torch.poser.modes import mode_07
+
+    teacher = graphed["bf16"]["teacher"]
+    character = image.to(torch.bfloat16).expand(BATCH, -1, -1, -1)
+    pose = torch.rand((BATCH, 45), generator=torch.Generator().manual_seed(SEED + 41)).cuda().to(torch.bfloat16)
+    torch.backends.cudnn.deterministic = True  # the graph's signature
+    try:
+        with torch.no_grad():
+            eager = _profiled_kernels(lambda: mode_07._compute_outputs(teacher, character, pose))
+            mode_07.counts.reset()
+            replayed = _profiled_kernels(lambda: mode_07.compute_outputs(teacher, character, pose))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert teacher_calls() == (0, 0, 1)
+    assert sum(eager.values()) >= 2 * K6_PER_TEACHER_CALL and replayed == eager, (eager, replayed)
+
+
+def test_a_call_inside_a_callers_capture_runs_its_body_into_that_graph(graphed, image):
+    """A caller that captures a graph of its own gets the body in it: the
+    call is refused a graph of mode_07's, and the caller's replay equals
+    the eager body."""
+    from tha4_tpu_torch.poser.modes import mode_07
+
+    teacher = graphed["bf16"]["teacher"]
+    character = image.to(torch.bfloat16).expand(BATCH, -1, -1, -1)
+    pose = torch.rand((BATCH, 45), generator=torch.Generator().manual_seed(SEED + 42)).cuda().to(torch.bfloat16)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            eager = mode_07._compute_outputs(teacher, character, pose)
+            mode_07.counts.reset()
+            outer = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(outer):
+                captured = mode_07.compute_outputs(teacher, character, pose)
+            outer.replay()
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert teacher_calls() == (1, 0, 0)
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))

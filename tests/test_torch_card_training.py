@@ -21,7 +21,9 @@ import shutil
 import pytest
 import torch
 
-from torch_card import BATCH, K6_PER_TEACHER_CALL, SEED, launches, reset, teacher_params, workdir
+from torch_card import (
+    BATCH, K6_PER_TEACHER_CALL, SEED, dispatched, graph_calls, launches, reset, teacher_calls, teacher_params, workdir,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -198,17 +200,22 @@ def body(workdir, teacher_params):
     reset(counters)
     result = trainer.train()
     return {"jobs": jobs, "phases": phases, "run": run, "result": result, "launches": launches(counters),
-            "prefix": trainer.cfg.prefix, "workdir": workdir, "total": total}
+            "teacher_calls": teacher_calls(), "prefix": trainer.cfg.prefix, "workdir": workdir, "total": total}
 
 
 def test_body_step_launches(body):
-    """K2 five times (the teacher's warps), K3's forward and grid backward
-    once, each poly_sin kernel 9 times, K6 and its fold 102 times, K1 and
-    K4 never."""
+    """A step: K3's forward and grid backward once, each poly_sin kernel 9
+    times, K1 and K4 never; one teacher call, which launches K2 five times
+    (its warps) and K6 and its fold 102 times where it runs its body: the
+    first step's call (eager) and the second's (the capture), not the
+    replays of the rest."""
+    calls = graph_calls(STEPS)
+    teacher = dispatched(calls)
+    assert body["teacher_calls"] == calls
     assert body["launches"] == {
-        "grid_sample_fast": 5 * STEPS, "grid_sample_train_forward": STEPS, "grid_sample_grid_backward": STEPS,
+        "grid_sample_fast": 5 * teacher, "grid_sample_train_forward": STEPS, "grid_sample_grid_backward": STEPS,
         "poly_sin_forward": 9 * STEPS, "poly_sin_backward": 9 * STEPS, "sine_chain_t": 0, "sine_chain_t_bwd": 0,
-        "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * STEPS, "fold_groupnorm_film": K6_PER_TEACHER_CALL * STEPS,
+        "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL * teacher, "fold_groupnorm_film": K6_PER_TEACHER_CALL * teacher,
     }
     assert body["result"]["examples_seen"] == body["total"]
 

@@ -29,6 +29,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 20261016
 BATCH = 8  # the students' training batch
 K6_PER_TEACHER_CALL = 55 + 47  # upscaler + body morpher U-Nets of one mode_07 call
+# The wrappers' launches of a mode_07 call that runs its body: an eager call
+# or a capture.  A replay of the captured graph launches the same kernels
+# through none of the wrappers, so their counters do not see it.
+TEACHER_CALL = {"grid_sample_fast": 5, "fused_affine_conv3_nchw": K6_PER_TEACHER_CALL,
+                "fold_groupnorm_film": K6_PER_TEACHER_CALL}
 BF16_MIN_PSNR = 28.0  # tests/test_mode_14_parity.py:166
 
 
@@ -99,8 +104,34 @@ def kernel_counters() -> list:
 
 
 def reset(counters) -> None:
+    """The launch counters, and mode_07's counts of how its calls ran."""
+    from tha4_tpu_torch.poser.modes import mode_07
+
     for c in counters:
         c.launches = 0
+    mode_07.counts.reset()
+
+
+def teacher_calls() -> tuple:
+    """(eager calls, captures, replays) of ``mode_07.compute_outputs``
+    since the last ``reset``."""
+    from tha4_tpu_torch.poser.modes import mode_07
+
+    return mode_07.counts.eager_calls, mode_07.counts.captures, mode_07.counts.replays
+
+
+def graph_calls(*calls_per_signature: int) -> tuple:
+    """What ``teacher_calls`` reads after these many calls of each of a
+    teacher's signatures, on the card outside an int8 scope: a signature's
+    first call runs eagerly, its second captures, the rest replay."""
+    return (len(calls_per_signature), sum(n >= 2 for n in calls_per_signature),
+            sum(max(n - 2, 0) for n in calls_per_signature))
+
+
+def dispatched(calls: tuple) -> int:
+    """The calls of ``teacher_calls``'s reading that ran the body, which the
+    launch counters see: the eager calls and the captures."""
+    return calls[0] + calls[1]
 
 
 def launches(counters) -> dict:

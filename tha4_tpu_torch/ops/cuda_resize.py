@@ -27,7 +27,8 @@ cotangent as NHWC in either layout.  On the CPU autograd differentiates
 the plain version.
 
 The tables are made once per (in, out, device) and cached, so a frame that
-has run once can be captured in a CUDA graph.
+has run once can be captured in a CUDA graph; the forward's are never
+dropped, so that such a graph's addresses stay valid.
 """
 
 from __future__ import annotations
@@ -72,10 +73,12 @@ def _adjoint_np(in_size: int, out_size: int) -> np.ndarray:
     return np.concatenate([entries.reshape(-1), offsets]).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=None)
 def taps(in_size: int, out_size: int, device: str) -> torch.Tensor:
     """``_taps_np`` on ``device``.  A normal tensor even when first asked for
-    under inference mode (see ``ops.warp._identity_grid``)."""
+    under inference mode (see ``ops.warp._identity_grid``).  Kept for the
+    process's life (one per size pair the program resizes by): a captured
+    CUDA graph reads it by address."""
     with torch.inference_mode(False):
         return torch.tensor(_taps_np(in_size, out_size), device=device)
 

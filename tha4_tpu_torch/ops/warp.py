@@ -24,10 +24,12 @@ def _identity_grid_np(h: int, w: int) -> np.ndarray:
     return np.stack([gx, gy], axis=-1)  # (H, W, 2)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _identity_grid(h: int, w: int, device: str) -> torch.Tensor:
     # A normal tensor even when first asked for under inference mode: the
     # cache outlives that block, and training saves the grid for backward.
+    # Never dropped (one per warped size): a captured CUDA graph (mode_07's
+    # teacher) reads it by address.
     with torch.inference_mode(False):
         return torch.from_numpy(_identity_grid_np(h, w)).to(device)
 

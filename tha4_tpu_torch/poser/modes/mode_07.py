@@ -27,11 +27,33 @@ face teacher is the first three networks (``poser.modes.mode_12``).
 object (the reference's cross-frame cache, mode_07.py:54-70), so that pose
 changes on one rest image skip network 1.  Direct ``compute_outputs``
 callers (the body distillation) run the decomposer inline.
+
+A call on the card replays a CUDA graph of the same kernels where it can:
+the teacher is frozen, so a repeated call signature (the training step's
+B = 8, the poser's B = 1) launches the ~2850 kernels of its body as one
+graph, and the host no longer dispatches them one by one.  A call takes a
+graph when every input is a CUDA tensor, none requires a gradient, no int8
+scope (``ops.quant``: its scales or a calibration, which hook each
+convolution in Python) is active and the caller is not capturing a graph
+of its own (``refusal``).  A signature is the inputs' shapes, strides,
+dtypes and devices, whether the decomposer's outputs are given, and the
+backend flags that choose kernels (``signature``).  Its first call runs
+the body eagerly and warms it up (cuDNN's and cuBLAS's handles and
+workspaces, R1's tables, K6's plans); its second captures the body on a
+side stream and replays it; later calls copy their inputs into the
+graph's own and replay.  Each call returns a fresh copy of the 33
+outputs, which the caller owns.  A teacher keeps ``MAX_SIGNATURES``
+signatures, the least recently used dropped first, each graph with a
+private pool of its activations; ``Teacher.freeze`` drops them.  A graph
+reads the teacher's weights where they lay at its capture: change them in
+place, or freeze again.  ``counts`` says how the calls ran.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -116,7 +138,9 @@ class Teacher(nn.Module):
         weights in its layout (``Unet.store_w9``), and every conv that the
         int8 teacher quantizes keeps its int8 weight, quantized from f32
         before the cast, as the JAX teacher quantizes its f32 params, with
-        its bias cast to ``dtype`` once (``ops.quant.store_int8``)."""
+        its bias cast to ``dtype`` once (``ops.quant.store_int8``).  The
+        teacher's CUDA graphs go: they read the weights it had."""
+        _graphs.pop(self, None)
         self.requires_grad_(False).eval().to(device)
         quant.store_int8(self, dtype)
         for m in self.modules():
@@ -177,7 +201,32 @@ def compute_face_outputs(teacher: nn.Module, image: torch.Tensor, pose: torch.Te
 
 def compute_outputs(teacher: Teacher, image: torch.Tensor, pose: torch.Tensor,
                     decomposer_outputs: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, ...]:
-    """image (N,512,512,4) + pose (N,45), in the compute dtype -> 33 outputs."""
+    """image (N,512,512,4) + pose (N,45), in the compute dtype -> 33 outputs:
+    the body below, eagerly or as a replay of its CUDA graph (the module's
+    docstring says when)."""
+    inputs = (image, pose, *(decomposer_outputs or ()))
+    if refusal(inputs) is not None:
+        counts.eager_calls += 1
+        return _compute_outputs(teacher, image, pose, decomposer_outputs)
+    graphs = _graphs.setdefault(teacher, Signatures())
+    key = signature(inputs, decomposer_outputs is not None)
+    if not graphs.seen(key):  # the signature's first call: its warm-up
+        counts.eager_calls += 1
+        return _compute_outputs(teacher, image, pose, decomposer_outputs)
+    graph = graphs[key]
+    if graph is None:
+        graph = graphs[key] = _TeacherGraph(teacher, inputs, decomposer_outputs is not None)
+        counts.captures += 1
+    else:
+        counts.replays += 1
+    return graph.replay(inputs)
+
+
+def _compute_outputs(teacher: Teacher, image: torch.Tensor, pose: torch.Tensor,
+                     decomposer_outputs: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, ...]:
+    """The body of ``compute_outputs``, eager: what a graph captures.  Under
+    its own name, so that a wrapper of ``compute_outputs`` (a tap that
+    copies the outputs to the host) never runs inside a capture."""
     face_outputs = compute_face_outputs(teacher, image, pose, decomposer_outputs)
     face_morphed_full = image.clone()
     face_morphed_full[:, 32:224, 160:352, :] = face_outputs[face_morpher.OUTPUT_IMAGE_INDEX].to(image.dtype)
@@ -191,6 +240,123 @@ def compute_outputs(teacher: Teacher, image: torch.Tensor, pose: torch.Tensor,
     with profiling.span("mode07.upscaler"):
         upscaler_outputs = teacher.upscaler(face_morphed_full, coarse_posed, coarse_grid, rotation_pose)
     return tuple(upscaler_outputs) + (face_morphed_full,) + tuple(body_outputs) + face_outputs
+
+
+# -- the teacher's call as a CUDA graph ---------------------------------------
+
+MAX_SIGNATURES = 4  # call signatures a teacher keeps, warmed up or captured
+
+
+@dataclass
+class GraphCounts:
+    """How ``compute_outputs`` ran its calls since the last ``reset``, one
+    count a call: eagerly (a call no graph may take, or a signature's
+    first), by a capture (a signature's second, its outputs from the first
+    replay) or by a replay.  The graphs' hit share is replays / calls."""
+
+    eager_calls: int = 0
+    captures: int = 0
+    replays: int = 0
+
+    def reset(self) -> None:
+        self.eager_calls = self.captures = self.replays = 0
+
+
+class Signatures(OrderedDict):
+    """A teacher's call signatures, the least recently used first: each
+    maps to its graph, or to None until its second call captures one."""
+
+    def seen(self, key) -> bool:
+        """Whether ``key`` was called before (now the most recently used);
+        else it is added, past ``MAX_SIGNATURES`` in place of the least
+        recently used, whose graph goes."""
+        if key in self:
+            self.move_to_end(key)
+            return True
+        self[key] = None
+        while len(self) > MAX_SIGNATURES:
+            self.popitem(last=False)
+        return False
+
+
+counts = GraphCounts()
+_graphs: "weakref.WeakKeyDictionary[nn.Module, Signatures]" = weakref.WeakKeyDictionary()
+
+
+def refusal(inputs: Sequence[torch.Tensor]) -> Optional[str]:
+    """Why a call on ``inputs`` runs eagerly, or None where a graph may take
+    it: ``"grad"`` (an input requires a gradient), ``"quant"`` (int8 scales
+    or a calibration are active: each convolution reads them in Python),
+    ``"device"`` (an input is not on the card), ``"capturing"`` (the caller
+    is capturing a graph of its own, which takes the body as it is)."""
+    if any(t.requires_grad for t in inputs):
+        return "grad"
+    if quant.current() is not None:
+        return "quant"
+    if any(t.device.type != "cuda" for t in inputs):
+        return "device"
+    if torch.cuda.is_current_stream_capturing():
+        return "capturing"
+    return None
+
+
+def _backend_flags() -> tuple:
+    """The settings that choose the kernels a call launches or how its
+    tensors are made: a graph replays those it was captured under."""
+    return (torch.backends.cudnn.enabled, torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction,
+            torch.are_deterministic_algorithms_enabled(), torch.is_autocast_enabled(),
+            torch.is_inference_mode_enabled())
+
+
+def signature(inputs: Sequence[torch.Tensor], decomposer_given: bool) -> tuple:
+    """The key of a call's graph: whether the decomposer's outputs are
+    given, the backend flags, each input's shape, strides, dtype and device."""
+    return (decomposer_given, _backend_flags(), tuple((t.shape, t.stride(), t.dtype, t.device) for t in inputs))
+
+
+def _like(t: torch.Tensor) -> torch.Tensor:
+    """A new tensor laid out as ``t``: its shape, strides, dtype, device and
+    offset into its storage (so its addresses align as ``t``'s do, which
+    libraries read when they choose a kernel)."""
+    extent = t.storage_offset() + 1 + sum((size - 1) * stride for size, stride in zip(t.shape, t.stride()))
+    return torch.empty(extent, dtype=t.dtype, device=t.device).as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` without its broadcast dimensions (stride 0): the elements a copy
+    writes once (an expanded image is one image)."""
+    for dim, (size, stride) in enumerate(zip(t.shape, t.stride())):
+        if stride == 0 and size > 1:
+            t = t.narrow(dim, 0, 1)
+    return t
+
+
+class _TeacherGraph:
+    """One signature's captured call: the graph, its own inputs (laid out as
+    the capturing call's) and outputs, and the teacher's tensors it reads."""
+
+    def __init__(self, teacher: Teacher, inputs: Sequence[torch.Tensor], decomposer_given: bool):
+        self.inputs = tuple(_like(t) for t in inputs)
+        # Held so that the memory the graph reads outlives any change of the
+        # module's attributes.
+        self.weights = tuple(teacher.parameters()) + tuple(teacher.buffers())
+        self.graph = torch.cuda.CUDAGraph()
+        image, pose, *dec = self.inputs
+        # On torch's capture stream, after a synchronize.  Thread-local: other
+        # threads' calls (a collective's watchdog, a server's handlers) stay
+        # their own affair while this one captures.
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = _compute_outputs(teacher, image, pose, tuple(dec) if decomposer_given else None)
+
+    def replay(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        for own, t in zip(self.inputs, inputs):
+            _dense(own).copy_(_dense(t))
+        with profiling.span("mode07.graph"):
+            self.graph.replay()
+        return tuple(o.clone() for o in self.outputs)
 
 
 def create_poser(

@@ -32,7 +32,9 @@ the body path instead:
   ``torch.cuda.synchronize()``, the median of 10 after 3 warm-up steps;
 
 * ``teacher_ms``: one ``mode_07.compute_outputs`` call at B = 1 and 8, bf16
-  and f32, the median of 20 CUDA-event timings after 2 warm-up calls;
+  and f32, the median of 20 CUDA-event timings after 2 warm-up calls (in a
+  tree whose teacher captures its call as a CUDA graph, the timed calls
+  are replays);
 * ``body_step_ms``: one bf16 body step at B = 8, host clock to
   ``torch.cuda.synchronize()``, the median of 10 after 3 warm-up steps;
   ``body_teacher_ms``, the CUDA-event median of its teacher labels;
@@ -42,7 +44,8 @@ the body path instead:
 * ``k6_launches_per_call`` where the tree has K6 (``ops.cuda_conv``);
 * ``teacher_launches``: the device operations (kernels, copies, fills) one
   ``mode_07.compute_outputs`` call enqueues at B = 1 and 8, bf16 and f32,
-  counted by ``torch.profiler``;
+  counted by ``torch.profiler`` (a replay: the body's, and its input and
+  output copies);
 * ``k2_b2b_ms``: K2 (``ops.cuda_warp.grid_sample_fast``) at the frame's
   512^2 x 4 warp, B = 1, f32 and bf16, one event pair around 200 calls back
   to back over 200: the rate a caller gets where the wrapper's host work
